@@ -1,0 +1,105 @@
+"""Box arithmetic on tensors, Detectron "+1" convention.
+
+Port of ``detectorch_tpu/ops/boxes.py``: the +1 width/height convention, the
+exp clip log(1000/16) and the "-1" in the decoded x2/y2. Boxes are
+(x1, y1, x2, y2) in the last axis, shape (..., 4). Bounds such as ``height``
+may be Python numbers or tensors that broadcast against ``boxes[..., 0]``
+(e.g. (B, 1) for per-image bounds over (B, N, 4) boxes).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from detectorch_tpu.config import BBOX_XFORM_CLIP
+
+
+def boxes_area(boxes):
+    """Area with the +1 convention."""
+    w = boxes[..., 2] - boxes[..., 0] + 1.0
+    h = boxes[..., 3] - boxes[..., 1] + 1.0
+    return w * h
+
+
+def clip_boxes(boxes, height, width):
+    """Clip to [0, w-1] x [0, h-1]; works on (..., 4) and tiled (..., 4K).
+
+    Tensor bounds broadcast against ``boxes.shape[:-1]``."""
+    shape = boxes.shape
+    b = boxes.reshape(shape[:-1] + (-1, 4))
+    # one trailing axis for the K boxes of a tiled row
+    h1 = torch.as_tensor(height, dtype=boxes.dtype, device=boxes.device)[..., None] - 1.0
+    w1 = torch.as_tensor(width, dtype=boxes.dtype, device=boxes.device)[..., None] - 1.0
+    # jnp.clip(x, 0, hi) == minimum(maximum(x, 0), hi)
+    x1 = torch.minimum(torch.clamp_min(b[..., 0], 0.0), w1)
+    y1 = torch.minimum(torch.clamp_min(b[..., 1], 0.0), h1)
+    x2 = torch.minimum(torch.clamp_min(b[..., 2], 0.0), w1)
+    y2 = torch.minimum(torch.clamp_min(b[..., 3], 0.0), h1)
+    return torch.stack([x1, y1, x2, y2], dim=-1).reshape(shape)
+
+
+def bbox_transform(boxes, deltas, weights=(1.0, 1.0, 1.0, 1.0)):
+    """Decode regression deltas: boxes (..., N, 4), deltas (..., N, 4K) ->
+    (..., N, 4K) boxes."""
+    widths = boxes[..., 2] - boxes[..., 0] + 1.0
+    heights = boxes[..., 3] - boxes[..., 1] + 1.0
+    ctr_x = boxes[..., 0] + 0.5 * widths
+    ctr_y = boxes[..., 1] + 0.5 * heights
+
+    shape = deltas.shape
+    d = deltas.reshape(shape[:-1] + (-1, 4))
+    wx, wy, ww, wh = weights
+    dx = d[..., 0] / wx
+    dy = d[..., 1] / wy
+    dw = torch.clamp_max(d[..., 2] / ww, BBOX_XFORM_CLIP)
+    dh = torch.clamp_max(d[..., 3] / wh, BBOX_XFORM_CLIP)
+
+    pred_ctr_x = dx * widths[..., None] + ctr_x[..., None]
+    pred_ctr_y = dy * heights[..., None] + ctr_y[..., None]
+    pred_w = torch.exp(dw) * widths[..., None]
+    pred_h = torch.exp(dh) * heights[..., None]
+
+    out = torch.stack(
+        [
+            pred_ctr_x - 0.5 * pred_w,
+            pred_ctr_y - 0.5 * pred_h,
+            pred_ctr_x + 0.5 * pred_w - 1.0,
+            pred_ctr_y + 0.5 * pred_h - 1.0,
+        ],
+        dim=-1,
+    )
+    return out.reshape(shape)
+
+
+def bbox_overlaps(boxes, query_boxes):
+    """Dense IoU, +1 convention: boxes (..., N, 4), query (..., K, 4) ->
+    (..., N, K)."""
+    area_q = (query_boxes[..., 2] - query_boxes[..., 0] + 1.0) * (
+        query_boxes[..., 3] - query_boxes[..., 1] + 1.0
+    )
+    area_b = (boxes[..., 2] - boxes[..., 0] + 1.0) * (
+        boxes[..., 3] - boxes[..., 1] + 1.0
+    )
+    iw = (
+        torch.minimum(boxes[..., :, None, 2], query_boxes[..., None, :, 2])
+        - torch.maximum(boxes[..., :, None, 0], query_boxes[..., None, :, 0])
+        + 1.0
+    )
+    ih = (
+        torch.minimum(boxes[..., :, None, 3], query_boxes[..., None, :, 3])
+        - torch.maximum(boxes[..., :, None, 1], query_boxes[..., None, :, 1])
+        + 1.0
+    )
+    inter = torch.clamp_min(iw, 0.0) * torch.clamp_min(ih, 0.0)
+    union = area_b[..., :, None] + area_q[..., None, :] - inter
+    return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
+def filter_boxes_mask(boxes, min_size, scale_factor, im_height, im_width):
+    """Proposal min-size / center-inside validity mask, bool (..., N)."""
+    min_size = min_size * scale_factor
+    ws = boxes[..., 2] - boxes[..., 0] + 1.0
+    hs = boxes[..., 3] - boxes[..., 1] + 1.0
+    x_ctr = boxes[..., 0] + ws / 2.0
+    y_ctr = boxes[..., 1] + hs / 2.0
+    return (ws >= min_size) & (hs >= min_size) & (x_ctr < im_width) & (y_ctr < im_height)

@@ -10,7 +10,10 @@ setup(
     name="detectorch_tpu",
     version="0.1.0",
     description="TPU-native Detectron (Fast/Faster/Mask R-CNN) in JAX/XLA/Pallas",
-    packages=find_packages(include=["detectorch_tpu", "detectorch_tpu.*"]),
+    packages=find_packages(include=["detectorch_tpu", "detectorch_tpu.*",
+                                    "detectorch_tpu_torch", "detectorch_tpu_torch.*"]),
+    # the port's CUDA sources, compiled by nvcc at first use
+    package_data={"detectorch_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[
         Extension(
             "detectorch_tpu_rle_native",
