@@ -8,17 +8,31 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 Phases — each passes or the script exits non-zero:
 
   1. the device: nvidia-smi's name and power limit, torch's device name;
-  2. the build of the RoIAlign kernel from csrc/, with its time;
-  3. the kernel against its plain PyTorch version on the card, at the main
-     path's shapes (batch 8 pyramids at 832x1344, C = 256; 1000 rois per
-     image at 7x7 and 108 at 14x14), bf16 and fp32 features, with CUDA-event
-     times of both;
-  4. the main path: e2e_mask_rcnn_R-50-FPN_2x, bf16, batch 8 at 832x1344,
-     random weights from init_params(seed 0); one warm-up request, then three
-     timed requests, with the kernel's launch count checked;
-  5. one image through the whole path in fp32 (TF32 off), with the kernel
-     and with the plain RoIAlign: equal rois, cls_scores and masks within
-     tolerance.
+  2. the build of both RoIAlign kernels from csrc/ (one nvcc each, started
+     together), with its time;
+  3. the forward kernel against its plain PyTorch version on the card, at
+     the inference path's shapes (batch 8 pyramids at 832x1344, C = 256;
+     1000 rois per image at 7x7 and 108 at 14x14), bf16 and fp32 features,
+     with CUDA-event times of both;
+  4. the inference path: e2e_mask_rcnn_R-50-FPN_2x, bf16, batch 8 at
+     832x1344, random weights from init_params(seed 0); one warm-up request,
+     then three timed requests, with the kernel's launch count checked;
+  5. one image through the whole inference path in fp32 (TF32 off), with the
+     kernel and with the plain RoIAlign: equal rois, cls_scores and masks
+     within tolerance;
+  6. the backward kernel against its plain version at the training shapes
+     (batch 8 pyramids at 832x1344, C = 256; 512 rois per image at 7x7 and
+     128 at 14x14), bf16 and fp32 gradients: fp32 within 1e-5 * max|plain|,
+     bf16 equal to the fp32 result rounded once, two launches bitwise
+     equal, CUDA-event times of both;
+  7. the training path: e2e_mask_rcnn_R-50-FPN_2x with the mask branch,
+     bf16, batch 8 at 832x1344, 512 rois and 128 mask rows per image, from
+     synthetic roidb entries; one warm-up step, three timed steps (ms/step,
+     img/s, peak memory), 2 forward + 2 backward kernel launches per step,
+     finite losses, and the loss lower after 5 steps on the one batch;
+  8. one image of the training step in fp32 (TF32 off): gradients through
+     the kernels against gradients through the kernel forward with the
+     plain backward, and through both plain versions.
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
@@ -32,11 +46,13 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PRESET = "e2e_mask_rcnn_R-50-FPN_2x"
 BATCH, HEIGHT, WIDTH = 8, 832, 1344
 BOX_ROIS, MASK_ROIS = 1000, 108  # box call; mask call = 100 detections + 8 tie slots
+TRAIN_ROIS, TRAIN_MASK_ROWS = 512, 128  # sampled rois per image; fg-capacity mask rows
 # kernel vs plain: both compute in fp32 from the same (bf16-exact or fp32)
 # feature values and the same roi geometry; only the order of the fp32 sums
 # over <= 16 weighted taps per bin differs, on outputs |v| < ~5: ~1e-6
@@ -45,6 +61,18 @@ KERNEL_ATOL = 1e-5
 # summation order (~1e-6); through fc6/fc7 that moves softmax probabilities
 # (~1/81) and deltas by far less than these bounds
 CLS_ATOL, DELTA_ATOL, MASK_ATOL = 1e-5, 1e-4, 1e-4
+# backward kernel vs plain: the same fp32 products of g, bilinear weights and
+# 1/count, summed per pixel in another order (the kernel by roi and bin, the
+# plain version by index_add_)
+BWD_REL = 1e-5
+# fp32 training step, one image: gradients through the kernels against the
+# plain versions, per trainable leaf, max|d| <= GRAD_REL * max|g|. With the
+# kernel forward on both sides every activation is equal, so the backward
+# kernel is the only difference; with the plain forward too, a ReLU unit
+# whose pre-activation lies within fp32 rounding of zero can switch between
+# the two runs and move one channel of a leaf by ~0.5% (seen on the CPU), so
+# that comparison is held to cosine >= GRAD_COS and FLIP_REL instead
+GRAD_REL, GRAD_COS, FLIP_REL = 1e-4, 0.9999, 1e-2
 
 
 def log(msg: str) -> None:
@@ -129,14 +157,18 @@ def phase_device():
 
 
 def phase_build():
-    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
 
     t0 = time.perf_counter()
-    path = roi_align_fwd.build()
-    log(f"[2 build] {os.path.relpath(path, REPO)} in {time.perf_counter() - t0:.2f} s")
-    for line in roi_align_fwd.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"          ptxas: {line.strip()}")
+    kernels = (roi_align_fwd, roi_align_bwd)
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        paths = list(pool.map(lambda k: k.build(), kernels))
+    log(f"[2 build] {', '.join(os.path.relpath(p, REPO) for p in paths)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for kernel in kernels:
+        for line in kernel.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"          ptxas: {line.strip()}")
 
 
 def phase_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
@@ -181,16 +213,6 @@ def phase_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
             check(bool(torch.isfinite(got).all()), "kernel output not finite")
             del got, ref
     return summary
-
-
-def _device_params(params, device):
-    import torch
-
-    out = {}
-    for k, v in params.items():
-        v = v.to(device)
-        out[k] = v.contiguous(memory_format=torch.channels_last) if v.dim() == 4 else v
-    return out
 
 
 def _batch(gen, batch, height, width, device):
@@ -243,14 +265,14 @@ def phase_main_path(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     import torch
 
     from detectorch_tpu.config import PRESETS, TestConfig
-    from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.models.detector import init_params, make_inference_fn
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
 
     cfg = cfg or PRESETS[PRESET]
     test_cfg = test_cfg or TestConfig()
     t0 = time.perf_counter()
-    params = _device_params(params_from_jax(init_params(cfg, seed=0)), device)
+    params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     batch_args = _batch(gen, batch, height, width, device)
@@ -331,6 +353,298 @@ def phase_fp32_parity(device, params, height=HEIGHT, width=WIDTH, cfg=None, test
     check(mask_err <= MASK_ATOL, f"masks differ by {mask_err}")
 
 
+def phase_bwd_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
+                     timing=True):
+    """Backward kernel vs plain backward at the training shapes; returns the
+    summary."""
+    import torch
+
+    from detectorch_tpu.config import PRESETS
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd
+    from detectorch_tpu_torch.ops.fpn_levels import map_rois_to_fpn_levels
+    from detectorch_tpu_torch.ops.roi_align import multilevel_roi_align_backward
+
+    scales = PRESETS[PRESET].fpn_spatial_scales
+    shapes = [(batch, height // s, width // s, channels) for s in (4, 8, 16, 32)]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    summary = {"max_rel_err": 0.0}
+    for pooled, n in ((7, TRAIN_ROIS), (14, TRAIN_MASK_ROWS)):
+        rois = make_rois(gen, batch, n, height, width, device).reshape(-1, 4).contiguous()
+        levels = (map_rois_to_fpn_levels(rois) - 2).contiguous()
+        bidx = torch.arange(batch, dtype=torch.int32, device=device).repeat_interleave(n)
+        g = torch.randn((batch * n, pooled, pooled, channels), generator=gen, device=device)
+        args = (g, shapes, rois, bidx, levels, scales, pooled, pooled, 2)
+        ref = multilevel_roi_align_backward(*args)
+        got = roi_align_bwd(*args)
+        again = roi_align_bwd(*args)
+        got_bf16 = roi_align_bwd(*args, out_dtype=torch.bfloat16)
+        scale = max(r.abs().max().item() for r in ref)
+        err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        rounded = all(b.dtype == torch.bfloat16 and torch.equal(b, a.to(torch.bfloat16))
+                      for a, b in zip(got, got_bf16))
+        summary["max_rel_err"] = max(summary["max_rel_err"], err / scale)
+        summary.setdefault("max_abs_err", 0.0)
+        summary["max_abs_err"] = max(summary["max_abs_err"], err)
+        msg = (f"[6 bwd] {pooled}x{pooled} x {batch}x{n} rois: max|kernel - plain| = {err:.3g} "
+               f"= {err / scale:.3g} of max|plain| {scale:.3g} (tol {BWD_REL:g}); "
+               f"two launches equal: {same}; bf16 = fp32 rounded once: {rounded}")
+        if timing:
+            for dtype in (torch.bfloat16, torch.float32):
+                ms = cuda_time_ms(lambda: roi_align_bwd(*args, out_dtype=dtype), iters=20)
+                plain_ms = cuda_time_ms(
+                    lambda: multilevel_roi_align_backward(*args, out_dtype=dtype),
+                    iters=3, warmup=1)
+                r = batch * n
+                msg += (f"; {str(dtype)[6:]} kernel {ms:.4f} ms ({ms * 1e3 / r:.4f} us/roi), "
+                        f"plain {plain_ms:.4f} ms")
+                if dtype == torch.bfloat16 and pooled == 7:
+                    summary["ms"], summary["plain_ms"] = ms, plain_ms
+        log(msg)
+        check(err <= BWD_REL * scale, f"backward kernel disagrees with plain version: {err}")
+        check(same, "two launches of the backward kernel differ")
+        check(rounded, "bf16 gradient is not the fp32 gradient rounded once")
+        check(all(bool(torch.isfinite(a).all()) for a in got), "backward kernel output not finite")
+        del ref, got, again, got_bf16
+    empty = roi_align_bwd(g[:0], shapes, rois[:0], bidx[:0], levels[:0], scales, 14, 14, 2)
+    check(all(not e.any() for e in empty), "backward kernel over no rois is not zero")
+    return summary
+
+
+def make_train_batch(rng, batch, height, width, num_classes, rois_per_image, mask_rows,
+                     mask_res, device):
+    """A training batch built with numpy from synthetic roidb entries: gt
+    boxes, jittered and random proposals, the port's bbox regression
+    targets and the JAX package's roi sampler (JAX-free once targets are
+    set); mask targets are ellipses rasterised in each fg roi's frame."""
+    import numpy as np
+    import torch
+
+    from detectorch_tpu.config import SamplerConfig
+    from detectorch_tpu.data.coco import RoidbEntry, _np_bbox_overlaps
+    from detectorch_tpu.train.sampler import sample_rois
+    from detectorch_tpu_torch.data.roidb import add_bbox_regression_targets
+
+    keys = ("rois", "labels", "bbox_targets", "bbox_inside_weights", "bbox_outside_weights",
+            "valid")
+    out = {k: [] for k in keys + ("mask_targets", "mask_valid")}
+    yy, xx = (np.mgrid[:mask_res, :mask_res] + 0.5) / mask_res - 0.5
+    for _ in range(batch):
+        n_gt = rng.randint(3, 9)
+        wh = np.exp(rng.uniform(np.log(24), np.log(0.6 * min(height, width)), (n_gt, 2)))
+        xy = rng.uniform(0, 1, (n_gt, 2)) * ([width, height] - wh)
+        gt = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+        jitter = gt[rng.randint(n_gt, size=40 * n_gt)]
+        jitter = jitter + rng.randn(*jitter.shape) * 0.1 * np.tile(jitter[:, 2:] - jitter[:, :2], 2)
+        xy = rng.uniform(0, 1, (600, 2)) * [width, height]
+        rand = np.concatenate([xy, xy + rng.uniform(8, 400, (600, 2))], 1)
+        props = np.clip(np.concatenate([jitter, rand]), 0, [width - 1, height - 1] * 2)
+        props[:, 2:] = np.maximum(props[:, 2:], props[:, :2] + 1)
+        boxes = np.concatenate([gt, props]).astype(np.float32)
+        ov = _np_bbox_overlaps(boxes, gt)
+        gt_cls = rng.randint(1, num_classes, n_gt).astype(np.int32)
+        arg = ov.argmax(1)
+        entry = RoidbEntry(
+            image_id=0, file_path="", height=height, width=width, boxes=boxes,
+            gt_classes=np.concatenate([gt_cls, np.zeros(len(props), np.int32)]),
+            is_crowd=np.zeros(len(boxes), np.uint8), max_overlaps=ov.max(1).astype(np.float32),
+            max_classes=np.where(ov.max(1) > 0, gt_cls[arg], 0).astype(np.int32),
+            box_to_gt_ind_map=np.where(ov.max(1) > 0, arg, -1).astype(np.int32))
+        add_bbox_regression_targets([entry])
+        blobs = sample_rois(entry, 1.0, rng, SamplerConfig(rois_per_image=rois_per_image),
+                            num_classes)
+        for k in keys:
+            out[k].append(blobs[k])
+        fg = blobs["labels"][:mask_rows] > 0
+        c = rng.uniform(-0.15, 0.15, (mask_rows, 2, 1, 1))
+        r = rng.uniform(0.2, 0.5, (mask_rows, 2, 1, 1))
+        ellipse = ((yy - c[:, 0]) / r[:, 0]) ** 2 + ((xx - c[:, 1]) / r[:, 1]) ** 2 <= 1
+        out["mask_targets"].append((ellipse & fg[:, None, None]).astype(np.float32))
+        out["mask_valid"].append(fg)
+    return {k: torch.from_numpy(np.stack(v)).to(device) for k, v in out.items()}
+
+
+def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
+                rois_per_image=TRAIN_ROIS, mask_rows=TRAIN_MASK_ROWS, card=""):
+    """The training path through both kernels; returns the launch counts
+    of the three timed steps and the step rate."""
+    import numpy as np
+    import torch
+
+    from detectorch_tpu.config import PRESETS, SolverConfig
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
+    from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
+    from detectorch_tpu_torch.train.solver import apply_update
+    from detectorch_tpu_torch.train.train_step import box_branch_loss, make_train_step
+
+    cfg = cfg or PRESETS[PRESET]
+    t0 = time.perf_counter()
+    params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
+    # random weights on one fixed batch: at the schedule's LR (0.01) the
+    # class loss swings over the first steps; 1e-4 makes it fall steadily
+    solver = SolverConfig(base_lr=1e-4, warmup_iters=0)
+    init_state, make_step = make_train_step(cfg, solver, train_mask=True,
+                                            roi_align_impl="pallas-slab")
+    state, opt = init_state(params)
+    del params
+    step = make_step(opt)
+    fixed = make_train_batch(np.random.RandomState(0), batch, height, width, cfg.num_classes,
+                             rois_per_image, mask_rows, cfg.mask.resolution, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    fixed["image"] = torch.randn((batch, height, width, 3), generator=gen, device=device) * 50.0
+    n_fg = int((fixed["labels"] > 0).sum())
+    log(f"[7 train] {cfg.name} compute={cfg.compute_dtype} batch={batch} {height}x{width}, "
+        f"{rois_per_image} rois ({n_fg} fg in all) and {mask_rows} mask rows per image: "
+        f"params + batch in {time.perf_counter() - t0:.2f} s")
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def run():
+        nonlocal state
+        state, metrics = step(state, fixed)
+        values = {k: float(v) for k, v in metrics.items()}
+        sync()
+        check(all(np.isfinite(v) for v in values.values()), f"non-finite metrics {values}")
+        return values
+
+    t0 = time.perf_counter()
+    losses = [run()["loss"]]
+    log(f"[7 train] warm-up step: {time.perf_counter() - t0:.3f} s")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    roi_align_fwd.launches = roi_align_bwd.launches = 0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(run()["loss"])
+        times.append(time.perf_counter() - t0)
+    launches = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": roi_align_bwd.launches}
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else 0.0
+    # the fifth step in stages, synchronised after each: forward (loss),
+    # backward, optimizer update
+    stages = []
+    t0 = time.perf_counter()
+    total, metrics = box_branch_loss(
+        state.params, cfg, fixed["image"], fixed["rois"], fixed["labels"],
+        fixed["bbox_targets"], fixed["bbox_inside_weights"], fixed["bbox_outside_weights"],
+        fixed["valid"], fixed["mask_targets"], fixed["mask_valid"])
+    loss = total.mean()
+    sync()
+    stages.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    loss.backward()
+    sync()
+    stages.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    apply_update(opt, state.step, solver)
+    sync()
+    stages.append(time.perf_counter() - t0)
+    last = {k: float(v.detach().mean()) for k, v in metrics.items()}
+    last["loss"] = float(loss.detach())
+    check(all(np.isfinite(v) for v in last.values()), f"non-finite metrics {last}")
+    losses.append(last["loss"])
+    rate = batch * len(times) / sum(times)
+    log(f"[7 train] steps: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms -> "
+        f"{sum(times) / len(times) * 1e3:.1f} ms/step, {rate:.2f} img/s on {card or device}; "
+        f"peak memory {peak:.2f} GiB; kernel launches in 3 steps {launches}")
+    log(f"[7 train] step 5 in stages: forward {stages[0] * 1e3:.1f} ms, backward "
+        f"{stages[1] * 1e3:.1f} ms, optimizer {stages[2] * 1e3:.1f} ms")
+    log(f"[7 train] loss over 5 steps on one batch: {', '.join(f'{v:.4f}' for v in losses)}; "
+        f"step 5 {', '.join(f'{k} {v:.4f}' for k, v in last.items())}")
+    if device.type == "cuda":
+        check(launches == {"roi_align_fwd": 6, "roi_align_bwd": 6},
+              f"kernel launches {launches} in 3 steps, expected 2 forward + 2 backward each")
+    check(losses[-1] < losses[0], f"loss did not fall over 5 steps: {losses}")
+    return launches, rate
+
+
+def phase_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, rois_per_image=TRAIN_ROIS,
+                     mask_rows=TRAIN_MASK_ROWS):
+    """One image of the fp32 training step: gradients through the kernels
+    (K), through the kernel forward and the plain backward (KP), and through
+    both plain versions (P)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from detectorch_tpu.config import PRESETS, SolverConfig
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
+    from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
+    from detectorch_tpu_torch.ops.roi_align import (
+        multilevel_roi_align,
+        multilevel_roi_align_backward,
+    )
+    from detectorch_tpu_torch.ops.roi_align_fused import roi_align_fused
+    from detectorch_tpu_torch.train.train_step import box_branch_loss, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = (cfg or PRESETS[PRESET]).replace(compute_dtype="float32")
+    params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
+    b = make_train_batch(np.random.RandomState(5), 1, height, width, cfg.num_classes,
+                         rois_per_image, mask_rows, cfg.mask.resolution, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    b["image"] = torch.randn((1, height, width, 3), generator=gen, device=device) * 50.0
+    init_state, _ = make_train_step(cfg, SolverConfig(), train_mask=True)
+
+    def grads(roi_align):
+        state, _ = init_state(params)
+        total, _ = box_branch_loss(
+            state.params, cfg, b["image"], b["rois"], b["labels"], b["bbox_targets"],
+            b["bbox_inside_weights"], b["bbox_outside_weights"], b["valid"],
+            b["mask_targets"], b["mask_valid"], roi_align=roi_align)
+        total.sum().backward()
+        return float(total.detach().sum()), {k: v.grad for k, v in state.params.items()
+                                    if v.grad is not None}
+
+    loss_k, g_k = grads(roi_align_fused)
+    loss_kp, g_kp = grads(functools.partial(roi_align_fused, fwd=roi_align_fwd,
+                                            bwd=multilevel_roi_align_backward))
+    loss_p, g_p = grads(functools.partial(roi_align_fused, fwd=multilevel_roi_align,
+                                          bwd=multilevel_roi_align_backward))
+    check(g_k.keys() == g_kp.keys() == g_p.keys(), "different leaves received gradients")
+
+    def compare(other):
+        """Worst leaf max|d| / max|g|, the worst leaf's largest error outside
+        its worst output channel (a ReLU flip moves one channel), and the
+        lowest cosine."""
+        worst_rel, worst_rest, worst_cos = 0.0, 0.0, 1.0
+        for k, g in g_k.items():
+            scale = other[k].abs().max().item()
+            if scale == 0:
+                check(g.abs().max().item() == 0, f"{k}: gradient where the plain run has none")
+                continue
+            per_channel = (g - other[k]).abs().reshape(len(g), -1).amax(dim=1).sort().values
+            rest = per_channel[-2].item() if len(per_channel) > 1 else 0.0
+            a, e = g.double().flatten(), other[k].double().flatten()
+            cos = (a @ e / (a.norm() * e.norm())).item()
+            worst_rel = max(worst_rel, per_channel[-1].item() / scale)
+            worst_rest = max(worst_rest, rest / scale)
+            worst_cos = min(worst_cos, cos)
+        return worst_rel, worst_rest, worst_cos
+
+    rel_kp, _, cos_kp = compare(g_kp)
+    rel_p, rest_p, cos_p = compare(g_p)
+    log(f"[8 fp32 grads] 1 image, {len(g_k)} trainable leaves with gradients; loss "
+        f"kernels {loss_k:.6f}, plain {loss_p:.6f}; kernel fwd+bwd vs kernel fwd + plain bwd: "
+        f"worst leaf max|d| / max|g| {rel_kp:.3g} (tol {GRAD_REL:g}), min cosine {cos_kp:.8f}; "
+        f"vs plain fwd+bwd: worst {rel_p:.3g} (tol {FLIP_REL:g}), worst outside each leaf's "
+        f"worst channel {rest_p:.3g}, min cosine {cos_p:.8f} (tol {GRAD_COS})")
+    check(loss_k == loss_kp, "the same forward gave two losses")
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), f"losses differ: {loss_k} vs {loss_p}")
+    check(rel_kp <= GRAD_REL, f"backward kernel moves a gradient by {rel_kp} of its scale")
+    check(rel_p <= FLIP_REL and cos_p >= GRAD_COS,
+          f"gradients through the kernels differ from the plain versions: {rel_p}, {cos_p}")
+
+
 def main() -> int:
     import torch
 
@@ -348,17 +662,35 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     summary = phase_kernel(device)
-    launches, _, params = phase_main_path(device, card=smi)
+    infer_launches, _, params = phase_main_path(device, card=smi)
     phase_fp32_parity(device, params)
+    del params
+    bwd_summary = phase_bwd_kernel(device)
+    train_launches, _ = phase_train(device, card=smi)
+    phase_fp32_grads(device)
+    source = "detectorch_tpu_torch/csrc"
+    replaces = "detectorch_tpu/ops/pallas/roi_align_kernel.py"
     kernels = [{
         "name": "roi_align_fwd",
         "route": "cuda",
-        "source": "detectorch_tpu_torch/csrc/roi_align_fwd.cu",
-        "replaces": "detectorch_tpu/ops/pallas/roi_align_kernel.py:164",
-        "launches": launches,
+        "source": f"{source}/roi_align_fwd.cu",
+        "replaces": f"{replaces}:164",
+        "launches": train_launches["roi_align_fwd"],
+        "launches_by_path": {"inference": infer_launches,
+                             "training": train_launches["roi_align_fwd"]},
         "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"],
         "plain_ms": summary["plain_ms"],
+    }, {
+        "name": "roi_align_bwd",
+        "route": "cuda",
+        "source": f"{source}/roi_align_bwd.cu",
+        "replaces": f"{replaces}:489",
+        "launches": train_launches["roi_align_bwd"],
+        "launches_by_path": {"training": train_launches["roi_align_bwd"]},
+        "max_abs_err": bwd_summary["max_abs_err"],
+        "ms": bwd_summary["ms"],
+        "plain_ms": bwd_summary["plain_ms"],
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))

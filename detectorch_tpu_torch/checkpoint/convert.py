@@ -36,6 +36,16 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def params_to_device(params: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
+    """Move port-layout params to `device`; conv weights go channels_last,
+    the layout the convolutions run in."""
+    out = {}
+    for k, v in params.items():
+        v = v.to(device)
+        out[k] = v.contiguous(memory_format=torch.channels_last) if v.dim() == 4 else v
+    return out
+
+
 def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Inverse of ``params_from_jax``: port-layout tensors -> JAX-layout numpy."""
     out = {}

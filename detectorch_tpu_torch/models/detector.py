@@ -54,7 +54,9 @@ def _fpn_roi_align(cfg: ModelConfig, level_feats, rois, levels, size: int,
                    roi_align=roi_align_fwd):
     """RoIAlign of (B, N, 4) rois with (B, N) levels over the NHWC pyramid
     (B, H_l, W_l, C): one launch for the whole batch. Returns
-    (B, N, size, size, C) fp32."""
+    (B, N, size, size, C) fp32. `roi_align` takes ``roi_align_fwd``'s
+    arguments: inference passes that wrapper, training the differentiable
+    ``ops.roi_align_fused.roi_align_fused``."""
     bsz, n = rois.shape[:2]
     batch_idx = torch.arange(bsz, dtype=torch.int32, device=rois.device) \
         .repeat_interleave(n)

@@ -39,9 +39,12 @@ def mlp_box_head(params, roi_feats, dtype=torch.bfloat16):
     return F.relu(linear(params, x, "fc7", dtype))
 
 
-def box_predictors(params, box_feats, dtype=torch.bfloat16):
-    """cls_score (softmax over classes) + bbox_pred (4 deltas per class)."""
-    cls_score = torch.softmax(linear(params, box_feats, "cls_score", dtype), dim=-1)
+def box_predictors(params, box_feats, output_prob: bool = True, dtype=torch.bfloat16):
+    """cls_score (softmax over classes, or the logits when not output_prob,
+    as training uses them) + bbox_pred (4 deltas per class)."""
+    cls_score = linear(params, box_feats, "cls_score", dtype)
+    if output_prob:
+        cls_score = torch.softmax(cls_score, dim=-1)
     return cls_score, linear(params, box_feats, "bbox_pred", dtype)
 
 
@@ -63,9 +66,9 @@ def four_layer_conv_trunk(params, x):
     return to_nhwc(y)
 
 
-def mask_head(params, roi_feats, head_type: str):
+def mask_head(params, roi_feats, head_type: str, output_prob: bool = True):
     """Mask branch: roi_feats (N, 14, 14, C) NHWC -> (N, M, M, classes) fp32
-    sigmoid probabilities."""
+    sigmoid probabilities (or the logits when not output_prob)."""
     if head_type == "upshare":
         raise NotImplementedError("the C4 'upshare' mask head is not ported yet")
     if head_type != "1up4convs":
@@ -75,7 +78,8 @@ def mask_head(params, roi_feats, head_type: str):
     x = F.relu(deconv2x2(params, x, "conv5_mask"))
     logits = conv(to_nchw(x), params["mask_fcn_logits_w"]) \
         + params["mask_fcn_logits_b"].to(x.dtype)[:, None, None]
-    return torch.sigmoid(to_nhwc(logits.float()))
+    logits = to_nhwc(logits.float())
+    return torch.sigmoid(logits) if output_prob else logits
 
 
 # ---------------------------------------------------------------------------

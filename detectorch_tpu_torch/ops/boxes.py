@@ -9,6 +9,7 @@ may be Python numbers or tensors that broadcast against ``boxes[..., 0]``
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from detectorch_tpu.config import BBOX_XFORM_CLIP
@@ -69,6 +70,33 @@ def bbox_transform(boxes, deltas, weights=(1.0, 1.0, 1.0, 1.0)):
         dim=-1,
     )
     return out.reshape(shape)
+
+
+def bbox_transform_inv_np(boxes, gt_boxes, weights=(1.0, 1.0, 1.0, 1.0)):
+    """Encode regression targets in numpy, for host-side data preparation
+    (roidb targets, the roi sampler): boxes, gt_boxes (..., 4) ->
+    (..., 4) [tx, ty, tw, th], fp32. Copy of the JAX package's
+    ``ops.boxes.bbox_transform_inv_np``, whose module imports JAX."""
+    boxes = np.asarray(boxes, np.float32)
+    gt_boxes = np.asarray(gt_boxes, np.float32)
+    ex_w = boxes[..., 2] - boxes[..., 0] + 1.0
+    ex_h = boxes[..., 3] - boxes[..., 1] + 1.0
+    ex_cx = boxes[..., 0] + 0.5 * ex_w
+    ex_cy = boxes[..., 1] + 0.5 * ex_h
+    gt_w = gt_boxes[..., 2] - gt_boxes[..., 0] + 1.0
+    gt_h = gt_boxes[..., 3] - gt_boxes[..., 1] + 1.0
+    gt_cx = gt_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = gt_boxes[..., 1] + 0.5 * gt_h
+    wx, wy, ww, wh = weights
+    return np.stack(
+        [
+            wx * (gt_cx - ex_cx) / ex_w,
+            wy * (gt_cy - ex_cy) / ex_h,
+            ww * np.log(gt_w / ex_w),
+            wh * np.log(gt_h / ex_h),
+        ],
+        axis=-1,
+    )
 
 
 def bbox_overlaps(boxes, query_boxes):

@@ -1,18 +1,23 @@
-"""Multilevel FPN RoIAlign forward: the CUDA kernel's build, binding and wrapper.
+"""Multilevel FPN RoIAlign forward and backward: the CUDA kernels' build,
+binding and wrappers.
 
-Replaces the Pallas TPU kernel ``_roi_align_pallas_batched``
-(``detectorch_tpu/ops/pallas/roi_align_kernel.py:164``); the kernel itself and
-a note on its design are in ``detectorch_tpu_torch/csrc/roi_align_fwd.cu``.
+  * ``roi_align_fwd`` replaces the Pallas TPU kernel
+    ``_roi_align_pallas_batched``
+    (``detectorch_tpu/ops/pallas/roi_align_kernel.py:164``); kernel and design
+    note in ``detectorch_tpu_torch/csrc/roi_align_fwd.cu``.
+  * ``roi_align_bwd`` replaces ``_slab_grad_group`` (same file, ``:489``); kernel
+    and design note in ``detectorch_tpu_torch/csrc/roi_align_bwd.cu``.
 
-The source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
+Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C entry point, at first use, into ``build/detectorch_tpu_torch/`` at
 the root of the checkout; the library's name carries a hash of the source and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
 It is loaded with ``ctypes`` and launched on PyTorch's current stream.
 
-``roi_align_fwd(...)`` dispatches on where its tensors lie: CPU tensors run
-the plain PyTorch version (``ops/roi_align.multilevel_roi_align``); CUDA
-tensors launch the kernel or raise — there is no fallback on CUDA.
+Each wrapper dispatches on where its tensors lie: CPU tensors run the plain
+PyTorch version (``ops/roi_align.multilevel_roi_align`` and
+``multilevel_roi_align_backward``); CUDA tensors launch the kernel or raise —
+there is no fallback on CUDA.
 """
 
 from __future__ import annotations
@@ -24,13 +29,13 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
 from detectorch_tpu_torch.ops import roi_align as plain
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "roi_align_fwd.cu"
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "detectorch_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -39,6 +44,8 @@ NVCC_FLAGS = (
 PRECISIONS = ("exact",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_LEVELS = 8
+TILE = 8          # the backward kernel's output tile (kTile in roi_align_bwd.cu)
+_MAX_POOLED = 16  # kMaxPooled in roi_align_bwd.cu
 
 
 def _nvcc() -> str:
@@ -59,52 +66,104 @@ def check_precision(fwd_precision: str) -> None:
                          f"supported by the port; supported: {PRECISIONS}")
 
 
-class RoIAlignForward:
-    """The kernel's wrapper. ``launches`` counts kernel launches (CPU calls
-    that run the plain version do not count); ``build_log`` keeps nvcc's
-    ``-Xptxas -v`` report of the last build."""
+def build_library(source: Path) -> Tuple[Path, str]:
+    """Compile `source` with nvcc into ``BUILD_DIR/<stem>-<hash>.so``, unless
+    a library for this source and these flags exists already. Returns its
+    path and nvcc's ``-Xptxas -v`` report ("" when it was reused)."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
+    lib_path = BUILD_DIR / f"{source.stem}-{digest}.so"
+    if lib_path.exists():
+        return lib_path, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+        os.replace(tmp, lib_path)  # atomic: concurrent builds of one source agree
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib_path, log
+
+
+class _Kernel:
+    """A kernel's library, entry point and launch count. ``launches`` counts
+    kernel launches (CPU calls that run the plain version do not count);
+    ``build_log`` keeps nvcc's ``-Xptxas -v`` report of the last build."""
+
+    source: Path
+    symbol: str
+    argtypes: list
 
     def __init__(self):
         self.launches = 0
         self.build_log = ""
-        self._lib = None
+        self._fn = None
 
     def build(self) -> Path:
         """Compile (if no library for this source exists yet) and load."""
-        src = SOURCE.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"roi_align_fwd-{digest}.so"
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                    capture_output=True, text=True,
-                )
-                self.build_log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on {SOURCE}:\n{self.build_log}")
-                os.replace(tmp, lib_path)  # atomic: concurrent builds of one source agree
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        if self._lib is None:
-            lib = ctypes.CDLL(str(lib_path))
-            fn = lib.roi_align_fwd
+        lib_path, log = build_library(self.source)
+        if log:
+            self.build_log = log
+        if self._fn is None:
+            fn = getattr(ctypes.CDLL(str(lib_path)), self.symbol)
             fn.restype = ctypes.c_int
-            fn.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
-                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            self._lib = lib
+            fn.argtypes = self.argtypes
+            self._fn = fn
         return lib_path
+
+    def _call(self, *args):
+        if self._fn is None:
+            self.build()
+        err = self._fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error {err}")
+        self.launches += 1
+
+
+def _int_array(values):
+    return (ctypes.c_int * len(values))(*[int(v) for v in values])
+
+
+def _check_indices(rois, batch_idx, levels):
+    r = rois.shape[0]
+    if rois.dtype != torch.float32 or rois.shape != (r, 4) \
+            or not rois.is_contiguous() or rois.data_ptr() % 16:
+        raise ValueError("rois must be contiguous (R, 4) float32, 16-byte aligned")
+    for name, t in (("batch_idx", batch_idx), ("levels", levels)):
+        if t.dtype != torch.int32 or t.shape != (r,) or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (R,) int32")
+
+
+def _one_device(tensors, what: str) -> torch.device:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{what} inputs lie on several devices: {devices}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} kernel needs CUDA tensors, got {device}")
+    return device
+
+
+class RoIAlignForward(_Kernel):
+    """The forward kernel's wrapper."""
+
+    source = CSRC / "roi_align_fwd.cu"
+    symbol = "roi_align_fwd"
+    argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]
 
     def __call__(
         self,
@@ -125,16 +184,10 @@ class RoIAlignForward:
         (R, 4) fp32 image-space xyxy; batch_idx and levels (R,) int32.
         """
         check_precision(fwd_precision)
-        tensors = [*feature_list, rois, batch_idx, levels]
-        devices = {t.device for t in tensors}
-        if len(devices) != 1:
-            raise ValueError(f"RoIAlign inputs lie on several devices: {devices}")
-        if rois.device.type == "cpu":
+        if _one_device([*feature_list, rois, batch_idx, levels], "RoIAlign").type == "cpu":
             return plain.multilevel_roi_align(
                 feature_list, rois, batch_idx, levels, level_scales,
                 pooled_h, pooled_w, sampling_ratio, max_grid)
-        if rois.device.type != "cuda":
-            raise ValueError(f"RoIAlign kernel needs CUDA tensors, got {rois.device}")
         return self._launch(feature_list, rois, batch_idx, levels, level_scales,
                             pooled_h, pooled_w, sampling_ratio, max_grid)
 
@@ -157,13 +210,8 @@ class RoIAlignForward:
             # channels_last NCHW tensor permuted to NHWC passes as it is
             if not f.is_contiguous() or f.data_ptr() % 16:
                 raise ValueError("levels must be contiguous NHWC, 16-byte aligned")
+        _check_indices(rois, batch_idx, levels)
         r = rois.shape[0]
-        if rois.dtype != torch.float32 or rois.shape != (r, 4) \
-                or not rois.is_contiguous() or rois.data_ptr() % 16:
-            raise ValueError("rois must be contiguous (R, 4) float32, 16-byte aligned")
-        for name, t in (("batch_idx", batch_idx), ("levels", levels)):
-            if t.dtype != torch.int32 or t.shape != (r,) or not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous (R,) int32")
         if sampling_ratio < 0 or (sampling_ratio == 0 and max_grid < 1):
             raise ValueError("sampling_ratio must be > 0, or 0 with max_grid >= 1")
 
@@ -171,24 +219,116 @@ class RoIAlignForward:
                           device=rois.device)
         if r == 0:
             return out
-        if self._lib is None:
-            self.build()
         ptrs = (ctypes.c_void_p * n_lvl)(*[f.data_ptr() for f in feature_list])
         strides = (ctypes.c_longlong * n_lvl)(*[f.stride(0) for f in feature_list])
         heights = (ctypes.c_int * n_lvl)(*[f.shape[1] for f in feature_list])
         widths = (ctypes.c_int * n_lvl)(*[f.shape[2] for f in feature_list])
         scales = (ctypes.c_float * n_lvl)(*[float(s) for s in level_scales])
-        err = self._lib.roi_align_fwd(
+        self._call(
             rois.device.index, _DTYPES[f0.dtype], n_lvl, ptrs, strides, heights,
             widths, scales, num_images, rois.data_ptr(), batch_idx.data_ptr(),
             levels.data_ptr(), r, channels, pooled_h, pooled_w, sampling_ratio,
             max_grid, out.data_ptr(),
             torch.cuda.current_stream(rois.device).cuda_stream,
         )
-        if err != 0:
-            raise RuntimeError(f"roi_align_fwd launch failed: CUDA error {err}")
-        self.launches += 1
         return out
 
 
+def tile_tables(level_shapes, tile: int = TILE):
+    """The backward kernel's output tiles: tile x tile pixels, numbered
+    level-major, then image, then row-major within the level. level_shapes:
+    per level (B, H_l, W_l). Returns per level the tiles along a row and
+    per image, and each level's first tile id (plus the total at the end)."""
+    num_images = int(level_shapes[0][0])
+    tiles_x = [-(-int(s[2]) // tile) for s in level_shapes]
+    tiles_per_image = [-(-int(s[1]) // tile) * tx for s, tx in zip(level_shapes, tiles_x)]
+    tile_base = [0]
+    for n in tiles_per_image:
+        tile_base.append(tile_base[-1] + num_images * n)
+    return tiles_x, tiles_per_image, tile_base
+
+
+class RoIAlignBackward(_Kernel):
+    """The backward kernel's wrapper: the feature gradient of RoIAlign."""
+
+    source = CSRC / "roi_align_bwd.cu"
+    symbol = "roi_align_bwd"
+    argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+
+    def __call__(
+        self,
+        g: torch.Tensor,
+        feature_shapes: Sequence[Sequence[int]],
+        rois: torch.Tensor,
+        batch_idx: torch.Tensor,
+        levels: torch.Tensor,
+        level_scales: Sequence[float],
+        pooled_h: int,
+        pooled_w: int,
+        sampling_ratio: int = 2,
+        max_grid: int = 8,
+        out_dtype: torch.dtype = torch.float32,
+    ) -> List[torch.Tensor]:
+        """Feature gradient: per level (B, H_l, W_l, C) in `out_dtype`.
+
+        g: (R, PH, PW, C) fp32 cotangent of the forward's output;
+        feature_shapes: per level (B, H_l, W_l, C); rois (R, 4) fp32;
+        batch_idx and levels (R,) int32. Summed in fp32, rounded once.
+        """
+        if _one_device([g, rois, batch_idx, levels], "RoIAlign backward").type == "cpu":
+            return plain.multilevel_roi_align_backward(
+                g, feature_shapes, rois, batch_idx, levels, level_scales,
+                pooled_h, pooled_w, sampling_ratio, max_grid, out_dtype)
+        return self._launch(g, feature_shapes, rois, batch_idx, levels, level_scales,
+                            pooled_h, pooled_w, sampling_ratio, max_grid, out_dtype)
+
+    def _launch(self, g, feature_shapes, rois, batch_idx, levels, level_scales,
+                pooled_h, pooled_w, sampling_ratio, max_grid, out_dtype):
+        shapes = [tuple(int(d) for d in s) for s in feature_shapes]
+        n_lvl = len(shapes)
+        if not 1 <= n_lvl <= _MAX_LEVELS or len(level_scales) != n_lvl:
+            raise ValueError(f"need 1..{_MAX_LEVELS} levels with one scale each")
+        if out_dtype not in _DTYPES:
+            raise TypeError(f"gradients must be float32 or bfloat16, got {out_dtype}")
+        num_images, channels = shapes[0][0], shapes[0][-1]
+        if channels % 8:
+            raise ValueError(f"channels must be a multiple of 8, got {channels}")
+        if any(len(s) != 4 or s[0] != num_images or s[-1] != channels for s in shapes):
+            raise ValueError("levels must be (B, H_l, W_l, C) of one B and C")
+        _check_indices(rois, batch_idx, levels)
+        r = rois.shape[0]
+        if g.dtype != torch.float32 or g.shape != (r, pooled_h, pooled_w, channels) \
+                or not g.is_contiguous() or g.data_ptr() % 16:
+            raise ValueError("g must be contiguous (R, PH, PW, C) float32, 16-byte aligned")
+        if not (1 <= pooled_h <= _MAX_POOLED and 1 <= pooled_w <= _MAX_POOLED):
+            raise ValueError(f"pooled sizes must lie in 1..{_MAX_POOLED}")
+        if sampling_ratio < 0 or (sampling_ratio == 0 and max_grid < 1):
+            raise ValueError("sampling_ratio must be > 0, or 0 with max_grid >= 1")
+
+        outs = [torch.empty(s, dtype=out_dtype, device=g.device) for s in shapes]
+        ranges = torch.empty((max(r, 1), 4), dtype=torch.int32, device=g.device)
+        tiles_x, tiles_per_image, tile_base = tile_tables([s[:3] for s in shapes])
+        ptrs = (ctypes.c_void_p * n_lvl)(*[o.data_ptr() for o in outs])
+        scales = (ctypes.c_float * n_lvl)(*[float(s) for s in level_scales])
+        self._call(
+            g.device.index, _DTYPES[out_dtype], n_lvl, ptrs,
+            _int_array([s[1] for s in shapes]), _int_array([s[2] for s in shapes]), scales,
+            _int_array(tiles_x), _int_array(tiles_per_image), _int_array(tile_base), num_images,
+            g.data_ptr(), rois.data_ptr(), batch_idx.data_ptr(), levels.data_ptr(), r,
+            ranges.data_ptr(), channels, pooled_h, pooled_w, sampling_ratio, max_grid,
+            torch.cuda.current_stream(g.device).cuda_stream,
+        )
+        return outs
+
+
 roi_align_fwd = RoIAlignForward()
+roi_align_bwd = RoIAlignBackward()

@@ -12,9 +12,13 @@ index so one call serves a whole batch:
     count in the bin average (count = grid_h * grid_w);
   * coordinates clamp into [0, size-1]; y_high = min(y_low + 1, size - 1).
 
-This is the plain version that sits beside the CUDA kernel
-(``ops/cuda/roi_align_kernel.py``): CPU tensors run it, and the kernel is
-held to it on the card.
+``multilevel_roi_align_backward`` is its feature gradient, scattering
+through the same taps (the counterpart of JAX's gather VJP and of
+``multilevel_roi_align_slab_grad``).
+
+These are the plain versions that sit beside the CUDA kernels
+(``ops/cuda/roi_align_kernel.py``): CPU tensors run them, and the kernels
+are held to them on the card.
 """
 
 from __future__ import annotations
@@ -62,31 +66,22 @@ def sample_coords(start, bin_size, grid, pooled: int, max_grid: int):
     return start[:, None, None] + p * b + ((i + 0.5) * b / g)
 
 
-def multilevel_roi_align(
-    feature_list: Sequence[torch.Tensor],
-    rois,
-    batch_idx,
-    levels,
-    level_scales: Sequence[float],
-    pooled_h: int,
-    pooled_w: int,
-    sampling_ratio: int = 2,
-    max_grid: int = 8,
-):
-    """RoIAlign over FPN levels by an exact gather of the four bilinear taps.
+def _bilinear_taps(level_shapes, rois, batch_idx, levels, level_scales, pooled_h: int,
+                   pooled_w: int, sampling_ratio: int, max_grid: int):
+    """The four bilinear taps of every sample of every roi, over the levels
+    stacked row-wise into one (sum_l B*H_l*W_l, C) table.
 
-    feature_list: per level (B, H_l, W_l, C), finest first (any strides);
-    rois: (R, 4) image-space xyxy fp32; batch_idx: (R,) image of each roi;
-    levels: (R,) index into feature_list. Returns (R, PH, PW, C) fp32.
-    """
+    level_shapes: per level (B, H_l, W_l). Returns (idx, wts, inv_count,
+    sizes, max_grid): idx and wts are lists of four (R, PH*PW*S*S) tensors
+    — flat table rows and weights (hy*hx etc. times the live mask) of the
+    taps (y0,x0), (y0,x1), (y1,x0), (y1,x1), samples ordered (ph, pw, iy,
+    ix); inv_count (R,) is 1/(grid_h*grid_w); sizes the rows per level."""
     dev = rois.device
-    channels = feature_list[0].shape[-1]
-    shapes = torch.tensor([list(f.shape[1:3]) for f in feature_list],
+    shapes = torch.tensor([list(s[1:3]) for s in level_shapes],
                           dtype=torch.int64, device=dev)  # (L, 2)
-    sizes = [f.numel() // channels for f in feature_list]
+    sizes = [int(s[0]) * int(s[1]) * int(s[2]) for s in level_shapes]
     offsets = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))],
                            dtype=torch.int64, device=dev)
-    flat = torch.cat([f.reshape(-1, channels) for f in feature_list]).float()
 
     levels = levels.long()
     scales = torch.tensor(list(level_scales), dtype=torch.float32, device=dev)
@@ -112,9 +107,10 @@ def multilevel_roi_align(
 
     r = rois.shape[0]
     full = (r, pooled_h, pooled_w, max_grid, max_grid)
-    yy = ysc[:, :, None, :, None].expand(full).reshape(r, -1)
-    xx = xsc[:, None, :, None, :].expand(full).reshape(r, -1)
-    live = (live_y[:, :, None, :, None] & live_x[:, None, :, None, :]).reshape(r, -1).float()
+    k = pooled_h * pooled_w * max_grid * max_grid
+    yy = ysc[:, :, None, :, None].expand(full).reshape(r, k)
+    xx = xsc[:, None, :, None, :].expand(full).reshape(r, k)
+    live = (live_y[:, :, None, :, None] & live_x[:, None, :, None, :]).reshape(r, k).float()
 
     y_max = (lvl_h - 1)[:, None]
     x_max = (lvl_w - 1)[:, None]
@@ -127,17 +123,80 @@ def multilevel_roi_align(
     hy = 1.0 - ly
     hx = 1.0 - lx
     row = lvl_w[:, None]
+    b = base[:, None]
+    idx = [b + y0 * row + x0, b + y0 * row + x1, b + y1 * row + x0, b + y1 * row + x1]
+    wts = [hy * hx * live, hy * lx * live, ly * hx * live, ly * lx * live]
+    inv_count = 1.0 / (grid_h * grid_w).float()
+    return idx, wts, inv_count, sizes, max_grid
 
-    def take(yi, xi):
-        idx = base[:, None] + yi * row + xi
-        return flat[idx.reshape(-1)].reshape(idx.shape + (channels,))
+
+def multilevel_roi_align(
+    feature_list: Sequence[torch.Tensor],
+    rois,
+    batch_idx,
+    levels,
+    level_scales: Sequence[float],
+    pooled_h: int,
+    pooled_w: int,
+    sampling_ratio: int = 2,
+    max_grid: int = 8,
+):
+    """RoIAlign over FPN levels by an exact gather of the four bilinear taps.
+
+    feature_list: per level (B, H_l, W_l, C), finest first (any strides);
+    rois: (R, 4) image-space xyxy fp32; batch_idx: (R,) image of each roi;
+    levels: (R,) index into feature_list. Returns (R, PH, PW, C) fp32.
+    """
+    channels = feature_list[0].shape[-1]
+    idx, wts, inv_count, _, s = _bilinear_taps(
+        [f.shape[:3] for f in feature_list], rois, batch_idx, levels, level_scales,
+        pooled_h, pooled_w, sampling_ratio, max_grid)
+    flat = torch.cat([f.reshape(-1, channels) for f in feature_list]).float()
+
+    def take(i):
+        return flat[i.reshape(-1)].reshape(i.shape + (channels,))
 
     vals = (
-        take(y0, x0) * (hy * hx * live)[..., None]
-        + take(y0, x1) * (hy * lx * live)[..., None]
-        + take(y1, x0) * (ly * hx * live)[..., None]
-        + take(y1, x1) * (ly * lx * live)[..., None]
+        take(idx[0]) * wts[0][..., None]
+        + take(idx[1]) * wts[1][..., None]
+        + take(idx[2]) * wts[2][..., None]
+        + take(idx[3]) * wts[3][..., None]
     )
-    summed = vals.reshape(r, pooled_h, pooled_w, max_grid * max_grid, channels).sum(dim=3)
-    inv_count = 1.0 / (grid_h * grid_w).float()
+    r = rois.shape[0]
+    summed = vals.reshape(r, pooled_h, pooled_w, s * s, channels).sum(dim=3)
     return summed * inv_count[:, None, None, None]
+
+
+def multilevel_roi_align_backward(
+    g,
+    feature_shapes,
+    rois,
+    batch_idx,
+    levels,
+    level_scales: Sequence[float],
+    pooled_h: int,
+    pooled_w: int,
+    sampling_ratio: int = 2,
+    max_grid: int = 8,
+    out_dtype: torch.dtype = torch.float32,
+):
+    """Feature gradient of ``multilevel_roi_align``, exact for every roi.
+
+    g: (R, PH, PW, C) cotangent; feature_shapes: per level (B, H_l, W_l, C).
+    Each roi scatter-adds (``index_add_``, fp32) g times the same four
+    bilinear tap weights and 1/count that the forward gathers with; the
+    sum is rounded once to `out_dtype`. Returns per level (B, H_l, W_l, C).
+    """
+    channels = int(feature_shapes[0][-1])
+    idx, wts, inv_count, sizes, s = _bilinear_taps(
+        [tuple(f[:3]) for f in feature_shapes], rois, batch_idx, levels, level_scales,
+        pooled_h, pooled_w, sampling_ratio, max_grid)
+    r = rois.shape[0]
+    gs = g.float() * inv_count[:, None, None, None]
+    gs = gs[:, :, :, None, None, :].expand(r, pooled_h, pooled_w, s, s, channels) \
+        .reshape(r, pooled_h * pooled_w * s * s, channels)
+    flat = torch.zeros((sum(sizes), channels), dtype=torch.float32, device=g.device)
+    for i, w in zip(idx, wts):
+        flat.index_add_(0, i.reshape(-1), (gs * w[..., None]).reshape(-1, channels))
+    return [part.reshape(tuple(shape)).to(out_dtype)
+            for part, shape in zip(flat.split(sizes), feature_shapes)]
