@@ -11,9 +11,9 @@ Phases — each passes or the script exits non-zero:
   2. the build of both RoIAlign kernels from csrc/ (one nvcc each, started
      together), with its time;
   3. the forward kernel against its plain PyTorch version on the card, at
-     the inference path's shapes (batch 8 pyramids at 832x1344, C = 256;
-     1000 rois per image at 7x7 and 108 at 14x14), bf16 and fp32 features,
-     with CUDA-event times of both;
+     the inference and eval paths' shapes (batch 8 pyramids at 832x1344 and
+     at 1344x832, C = 256; 1000 rois per image at 7x7 and 108 at 14x14),
+     bf16 and fp32 features, with CUDA-event times of both at 832x1344;
   4. the inference path: e2e_mask_rcnn_R-50-FPN_2x, bf16, batch 8 at
      832x1344, random weights from init_params(seed 0); one warm-up request,
      then three timed requests, with the kernel's launch count checked;
@@ -32,7 +32,17 @@ Phases — each passes or the script exits non-zero:
      finite losses, and the loss lower after 5 steps on the one batch;
   8. one image of the training step in fp32 (TF32 off): gradients through
      the kernels against gradients through the kernel forward with the
-     plain backward, and through both plain versions.
+     plain backward, and through both plain versions;
+  9. COCO evaluation: a synthetic COCO set made with numpy (27 images at
+     480x640 and 9 at 640x480, served from memory), init_params(seed 0)
+     weights written as a Detectron pkl and read back through the caffe2
+     loader, then evaluate_dataset with the batched engine at batch 8,
+     on-device preprocessing, bf16, score_thresh 0: img/s end to end with
+     its load/submit/finalize split, >= 100 detections per image, every RLE
+     of its image's size, 12 + 12 finite COCOeval stats, 2 forward kernel
+     launches per batch; then, in fp32 (TF32 off) with masks fetched in
+     fp32, the batched engine's results for the first 4 images equal to the
+     single-image engine's.
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
@@ -73,6 +83,10 @@ BWD_REL = 1e-5
 # the two runs and move one channel of a leaf by ~0.5% (seen on the CPU), so
 # that comparison is held to cosine >= GRAD_COS and FLIP_REL instead
 GRAD_REL, GRAD_COS, FLIP_REL = 1e-4, 0.9999, 1e-2
+# eval: (height, width, count) of COCO-sized images; they fall into the
+# 832x1344 and 1344x832 buckets, each with a short tail batch
+EVAL_IMAGES = ((480, 640, 27), (640, 480, 9))
+PARITY_IMAGES = 4
 
 
 def log(msg: str) -> None:
@@ -173,7 +187,9 @@ def phase_build():
 
 def phase_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
                  timing=True):
-    """Kernel vs plain at the main path's shapes; returns the summary."""
+    """Kernel vs plain at the main paths' shapes, in both bucket orientations
+    (landscape for inference and training, portrait too for eval); returns
+    the summary, whose times are the landscape bf16 7x7 call's."""
     import torch
 
     from detectorch_tpu.config import PRESETS
@@ -185,33 +201,37 @@ def phase_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     summary = {"max_abs_err": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
-        feats = make_pyramid(gen, batch, height, width, channels, dtype, device)
-        for pooled, n in ((7, BOX_ROIS), (14, MASK_ROIS)):
-            rois = make_rois(gen, batch, n, height, width, device).reshape(-1, 4).contiguous()
-            levels = (map_rois_to_fpn_levels(rois) - 2).contiguous()
-            bidx = torch.arange(batch, dtype=torch.int32, device=device).repeat_interleave(n)
-            args = (feats, rois, bidx, levels, scales, pooled, pooled, 2)
-            got = roi_align_fwd(*args)
-            ref = multilevel_roi_align(*args)
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            summary["max_abs_err"] = max(summary["max_abs_err"], err)
-            msg = (f"[3 kernel] {str(dtype)[6:]:8s} {pooled}x{pooled} x {batch}x{n} rois: "
-                   f"max|kernel - plain| = {err:.3g} (tol {KERNEL_ATOL:g})")
-            if timing:
-                ms = cuda_time_ms(lambda: roi_align_fwd(*args), iters=20)
-                plain_ms = cuda_time_ms(lambda: multilevel_roi_align(*args), iters=3, warmup=1)
-                r = batch * n
-                msg += (f"; kernel {ms:.4f} ms ({ms * 1e3 / r:.4f} us/roi), "
-                        f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / r:.4f} us/roi)")
-                if dtype == torch.bfloat16 and pooled == 7:
-                    summary["ms"], summary["plain_ms"] = ms, plain_ms
-            log(msg)
-            check(err <= KERNEL_ATOL, f"kernel disagrees with plain version: {err}")
-            check(bool(torch.isfinite(got).all()), "kernel output not finite")
-            del got, ref
+    for h, w in ((height, width), (width, height)):
+        timed = timing and (h, w) == (height, width)
+        for dtype in (torch.bfloat16, torch.float32):
+            feats = make_pyramid(gen, batch, h, w, channels, dtype, device)
+            for pooled, n in ((7, BOX_ROIS), (14, MASK_ROIS)):
+                rois = make_rois(gen, batch, n, h, w, device).reshape(-1, 4).contiguous()
+                levels = (map_rois_to_fpn_levels(rois) - 2).contiguous()
+                bidx = torch.arange(batch, dtype=torch.int32, device=device).repeat_interleave(n)
+                args = (feats, rois, bidx, levels, scales, pooled, pooled, 2)
+                got = roi_align_fwd(*args)
+                ref = multilevel_roi_align(*args)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                summary["max_abs_err"] = max(summary["max_abs_err"], err)
+                msg = (f"[3 kernel] {h}x{w} {str(dtype)[6:]:8s} {pooled}x{pooled} x {batch}x{n} "
+                       f"rois: max|kernel - plain| = {err:.3g} (tol {KERNEL_ATOL:g})")
+                if timed:
+                    ms = cuda_time_ms(lambda: roi_align_fwd(*args), iters=20)
+                    plain_ms = cuda_time_ms(lambda: multilevel_roi_align(*args), iters=3,
+                                            warmup=1)
+                    r = batch * n
+                    msg += (f"; kernel {ms:.4f} ms ({ms * 1e3 / r:.4f} us/roi), "
+                            f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / r:.4f} us/roi)")
+                    if dtype == torch.bfloat16 and pooled == 7:
+                        summary["ms"], summary["plain_ms"] = ms, plain_ms
+                log(msg)
+                check(err <= KERNEL_ATOL, f"kernel disagrees with plain version: {err}")
+                check(bool(torch.isfinite(got).all()), "kernel output not finite")
+                del got, ref
+            del feats
     return summary
 
 
@@ -645,6 +665,178 @@ def phase_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, rois_per_imag
           f"gradients through the kernels differ from the plain versions: {rel_p}, {cos_p}")
 
 
+def make_eval_set(root, images, rng, num_categories=80):
+    """A synthetic COCO set made with numpy: uint8 noise images, each with 2-5
+    filled ellipses whose boxes and masks (np.mgrid) are the ground truth,
+    segmentations stored as RLE. Writes the annotation json under `root` and
+    returns its path and the images by file name: evaluate_dataset reads
+    them through its load_image, so no image file is written or decoded."""
+    import numpy as np
+
+    from detectorch_tpu.eval import rle
+
+    pics, imgs, anns = {}, [], []
+    for h, w, count in images:
+        yy, xx = np.mgrid[:h, :w] + 0.5
+        for _ in range(count):
+            image_id = len(imgs) + 1
+            name = f"{image_id:06d}.png"
+            im = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            for _ in range(rng.randint(2, 6)):
+                bw, bh = rng.uniform(0.1, 0.5) * w, rng.uniform(0.1, 0.5) * h
+                cx, cy = rng.uniform(bw / 2, w - bw / 2), rng.uniform(bh / 2, h - bh / 2)
+                mask = ((xx - cx) / (bw / 2)) ** 2 + ((yy - cy) / (bh / 2)) ** 2 <= 1
+                im[mask] = rng.randint(0, 256, 3)
+                ys, xs = np.nonzero(mask)
+                anns.append({
+                    "id": len(anns) + 1, "image_id": image_id,
+                    "category_id": int(rng.randint(1, num_categories + 1)),
+                    "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min() + 1),
+                             float(ys.max() - ys.min() + 1)],
+                    "area": float(mask.sum()), "iscrowd": 0,
+                    "segmentation": rle.encode(mask.astype(np.uint8)),
+                })
+            pics[name] = im
+            imgs.append({"id": image_id, "file_name": name, "height": h, "width": w})
+    ann = os.path.join(root, "instances_synth.json")
+    with open(ann, "w") as f:
+        json.dump({"images": imgs, "annotations": anns,
+                   "categories": [{"id": c, "name": f"class{c}"}
+                                  for c in range(1, num_categories + 1)]}, f)
+    return ann, pics
+
+
+def compare_results(a, b):
+    """tests/test_engine.py's comparison of two engines' COCO results: per
+    image the same number of detections; in score order the same classes,
+    boxes within rtol 1e-4 / atol 1e-3, and equal mask RLEs. Returns the
+    counts of what differs and the largest box difference."""
+    import numpy as np
+
+    diff = {"images": 0, "classes": 0, "boxes": 0, "masks": 0}
+    max_box = 0.0
+    for key in ("bbox", "segm"):
+        ra = sorted(a[key], key=lambda r: (r["image_id"], -r["score"]))
+        rb = sorted(b[key], key=lambda r: (r["image_id"], -r["score"]))
+        ids_a, ids_b = [r["image_id"] for r in ra], [r["image_id"] for r in rb]
+        if ids_a != ids_b:
+            diff["images"] += 1
+            continue
+        for x, y in zip(ra, rb):
+            diff["classes"] += x["category_id"] != y["category_id"]
+            if key == "bbox":
+                d = np.abs(np.subtract(x["bbox"], y["bbox"]))
+                max_box = max(max_box, float(d.max()))
+                diff["boxes"] += not np.allclose(x["bbox"], y["bbox"], rtol=1e-4, atol=1e-3)
+            else:
+                diff["masks"] += x["segmentation"] != y["segmentation"]
+    return diff, max_box
+
+
+def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
+               parity_images=PARITY_IMAGES, card=""):
+    """COCO evaluation through the port's entry points; returns the forward
+    kernel's launch count in the timed run."""
+    import collections
+    import functools
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from detectorch_tpu.config import PRESETS, TestConfig
+    from detectorch_tpu.data.coco import CocoDataset
+    from detectorch_tpu.eval import rle
+    from detectorch_tpu_torch.checkpoint import caffe2_import as c2
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+    from detectorch_tpu_torch.eval.engine import evaluate_dataset
+    from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
+
+    cfg = cfg or PRESETS[PRESET]
+    # random weights score every class near 1/81, under the default 0.05
+    test_cfg = test_cfg or TestConfig(score_thresh=0.0, device_preprocess=True)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ann, pics = make_eval_set(root, images, np.random.RandomState(7))
+        pkl = os.path.join(root, "model_final.pkl")
+        c2.save_caffe2_pkl(params_from_jax(init_params(cfg, seed=0)), cfg, pkl)
+        params = c2.fold_bn(c2.import_params(c2.load_caffe2_pkl(pkl), cfg))
+        ds = CocoDataset(ann, root)
+        roidb = ds.get_roidb(gt=False)
+        shapes = {e.image_id: (e.height, e.width) for e in roidb}
+        what = ", ".join(f"{c} at {h}x{w}" for h, w, c in images)
+        log(f"[9 eval] {len(roidb)} images ({what}), {len(ds.coco.anns)} gt objects; "
+            f"Detectron pkl of {os.path.getsize(pkl) / 2 ** 20:.1f} MiB written and read back; "
+            f"set-up {time.perf_counter() - t0:.2f} s")
+
+        def load_image(path):
+            return pics[os.path.basename(path)]
+
+        engines = {}
+        run = functools.partial(evaluate_dataset, cfg, test_cfg, params, ds, verbose=False,
+                                batch_size=batch, engines=engines, load_image=load_image,
+                                device=device)
+        # warm-up: one image of each shape, each a short batch of its bucket
+        firsts = list({(e.height, e.width): e for e in reversed(roidb)}.values())
+        t0 = time.perf_counter()
+        run(roidb=firsts)
+        log(f"[9 eval] warm-up over {len(firsts)} short batches: {time.perf_counter() - t0:.2f} s")
+        roi_align_fwd.launches = 0
+        t0 = time.perf_counter()
+        bbox_stats, segm_stats, info = run(roidb=roidb)
+        launches = roi_align_fwd.launches
+        wall = time.perf_counter() - t0
+        engines.clear()
+        n_batches = sum(math.ceil(c / batch) for _, _, c in images)
+        per_image = collections.Counter(r["image_id"] for r in info["bbox"])
+        split = " ".join(f"{k}={v:.3f}s" for k, v in info["phase_seconds"].items())
+        log(f"[9 eval] {cfg.name} compute={cfg.compute_dtype} batch={batch}, device "
+            f"preprocess: {info['images_per_sec']:.2f} img/s end to end on {card or device} "
+            f"(loop split: {split}); evaluate_dataset {wall:.2f} s with COCOeval; kernel "
+            f"launches {launches} in {n_batches} batches")
+        check(sorted(per_image) == sorted(shapes)
+              and min(per_image.values()) >= test_cfg.detections_per_img,
+              f"an image has fewer than {test_cfg.detections_per_img} detections: {per_image}")
+        check(len(info["segm"]) == len(info["bbox"]), "masks and boxes differ in number")
+        check(all(rle.decode(r["segmentation"]).shape == shapes[r["image_id"]]
+                  for r in info["segm"]), "an RLE does not decode to its image's size")
+        for name, stats in (("bbox", bbox_stats), ("segm", segm_stats)):
+            check(stats is not None and len(stats) == 12 and bool(np.isfinite(stats).all()),
+                  f"COCOeval {name} stats are not 12 finite numbers: {stats}")
+        log(f"[9 eval] detections per image {min(per_image.values())}-{max(per_image.values())}; "
+            f"{len(info['segm'])} masks, each of its image's size; 12 + 12 finite COCOeval "
+            f"stats, bbox AP {bbox_stats[0]:.4f}, segm AP {segm_stats[0]:.4f} (random weights)")
+        if device.type == "cuda":
+            check(launches == 2 * n_batches,
+                  f"RoIAlign kernel launched {launches} times in {n_batches} batches, "
+                  "expected 2 each")
+
+        # fp32, TF32 off, masks fetched in fp32: the batched engine's results
+        # equal the single-image engine's. Random mask logits all sit within
+        # rounding of the 0.5 threshold; a +-3 bias per class (confident
+        # masks, as trained weights give) keeps a pixel comparison meaningful
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        bias = params["mask_fcn_logits_b"].clone()
+        bias[0::2], bias[1::2] = 3.0, -3.0
+        run32 = functools.partial(
+            evaluate_dataset, cfg.replace(compute_dtype="float32"),
+            test_cfg.replace(mask_fetch_dtype="float32"), {**params, "mask_fcn_logits_b": bias},
+            ds, roidb=roidb[:parity_images], verbose=False, engines={}, load_image=load_image,
+            device=device)
+        _, _, single = run32(batch_size=1)
+        _, _, batched = run32(batch_size=parity_images)
+        diff, max_box = compare_results(single, batched)
+        counts = sorted(collections.Counter(r["image_id"] for r in single["bbox"]).items())
+        log(f"[9 eval] fp32 parity, first {parity_images} images, batched (batch "
+            f"{parity_images}) vs single-image engine: detections per image {counts}; "
+            f"differences {diff}; max|d box| {max_box:.3g} (rtol 1e-4, atol 1e-3)")
+        check(not any(diff.values()), f"batched and single-image results differ: {diff}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -668,6 +860,7 @@ def main() -> int:
     bwd_summary = phase_bwd_kernel(device)
     train_launches, _ = phase_train(device, card=smi)
     phase_fp32_grads(device)
+    eval_launches = phase_eval(device, card=smi)
     source = "detectorch_tpu_torch/csrc"
     replaces = "detectorch_tpu/ops/pallas/roi_align_kernel.py"
     kernels = [{
@@ -677,7 +870,8 @@ def main() -> int:
         "replaces": f"{replaces}:164",
         "launches": train_launches["roi_align_fwd"],
         "launches_by_path": {"inference": infer_launches,
-                             "training": train_launches["roi_align_fwd"]},
+                             "training": train_launches["roi_align_fwd"],
+                             "eval": eval_launches},
         "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"],
         "plain_ms": summary["plain_ms"],

@@ -1,1 +1,1 @@
-"""Parameter conversion between the JAX package's layout and the port's."""
+"""Parameters: the JAX-params bridge, caffe2 Detectron pkls, checkpoints."""

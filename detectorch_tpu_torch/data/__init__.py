@@ -1,1 +1,1 @@
-"""Host-side training data: roidb targets (numpy, no JAX)."""
+"""Input data: roidb targets (numpy, no JAX) and on-device preprocessing."""

@@ -1,1 +1,1 @@
-"""Detection postprocessing in PyTorch."""
+"""Detection postprocessing, the inference engines and COCO evaluation."""

@@ -6,7 +6,9 @@ Port of ``detectorch_tpu/eval/postprocess.py`` with the batch written out
   * unscale rois by im_scale, decode per-class deltas (weights 10,10,5,5),
     clip to the original image;
   * per (image, class) for classes 1..C-1, one batched NMS: scores
-    > score_thresh, NMS@0.5, up to k + slack kept per class;
+    > score_thresh, NMS@0.5, up to k + slack kept per class; or soft-NMS
+    (``test_cfg.soft_nms``), and box voting of the kept boxes
+    (``test_cfg.do_bbox_vote``);
   * global cap per image: keep everything >= the k-th largest score, so
     ties at the threshold all survive (up to ``detections_tie_slack``).
 
@@ -21,7 +23,7 @@ import torch
 
 from detectorch_tpu.config import TestConfig
 from detectorch_tpu_torch.ops import boxes as box_ops
-from detectorch_tpu_torch.ops.nms import batched_nms, topk_stable
+from detectorch_tpu_torch.ops.nms import batched_nms, batched_soft_nms, topk_stable
 
 
 class Detections(NamedTuple):
@@ -58,10 +60,6 @@ def postprocess_decoded(cls_scores, pred, roi_valid, test_cfg: TestConfig,
                         num_classes: int = 81) -> Detections:
     """Threshold / NMS / cap over already-decoded per-class boxes
     pred (B, N, C, 4)."""
-    if test_cfg.soft_nms:
-        raise NotImplementedError("soft-NMS is not ported yet")
-    if test_cfg.do_bbox_vote:
-        raise NotImplementedError("box voting is not ported yet")
     k = test_cfg.detections_per_img
     # per-class NMS keeps up to k_pad: the global >= threshold cap can admit
     # more than k detections from one class when scores tie at the
@@ -79,7 +77,12 @@ def postprocess_decoded(cls_scores, pred, roi_valid, test_cfg: TestConfig,
     neg_inf = float("-inf")
     nms_exact = torch.ones(bsz, dtype=torch.bool, device=cls_scores.device)
     m = test_cfg.nms_topk_prefilter
-    if m and n > m:
+    if test_cfg.soft_nms:
+        keep_idx, keep_scores, keep_ok = batched_soft_nms(
+            cls_boxes, cls_sc, k_pad, sigma=test_cfg.soft_nms_sigma,
+            overlap_thresh=test_cfg.nms_thresh, score_thresh=0.0001,
+            method=test_cfg.soft_nms_method, valid=valid)
+    elif m and n > m:
         # per-class top-M prefilter: exact whenever every class has <= M
         # above-threshold candidates; the stable top-k keeps ties in index
         # order, so the NMS tie order is unchanged
@@ -89,12 +92,20 @@ def postprocess_decoded(cls_scores, pred, roi_valid, test_cfg: TestConfig,
         keep_m, keep_ok = batched_nms(top_b, top_s, k_pad, test_cfg.nms_thresh,
                                       valid=top_s > neg_inf)
         keep_idx = torch.gather(top_i, 1, keep_m)
+        keep_scores = torch.gather(cls_sc, 1, keep_idx)
         nms_exact = (valid.sum(dim=1) <= m).reshape(bsz, nc).all(dim=1)
     else:
         keep_idx, keep_ok = batched_nms(cls_boxes, cls_sc, k_pad, test_cfg.nms_thresh,
                                         valid=valid)
-    keep_scores = torch.gather(cls_sc, 1, keep_idx)
+        keep_scores = torch.gather(cls_sc, 1, keep_idx)
     keep_boxes = torch.gather(cls_boxes, 1, keep_idx[..., None].expand(-1, -1, 4))
+    if test_cfg.do_bbox_vote:
+        # refine the kept boxes by voting with all of the class's
+        # above-threshold candidates (reference result_utils.py:152-158)
+        keep_boxes, keep_scores = box_ops.box_voting(
+            keep_boxes, keep_scores, cls_boxes,
+            torch.where(valid, cls_sc, torch.zeros_like(cls_sc)), valid,
+            test_cfg.bbox_vote_thresh, test_cfg.bbox_vote_method)
     keep_scores = torch.where(keep_ok, keep_scores, torch.full_like(keep_scores, neg_inf))
 
     # global cap per image: top k + slack (ties to the lower flat index =

@@ -1,8 +1,9 @@
 """Detector assembly: images -> padded detections + masks, batched, eager.
 
 Port of the FPN path of ``detectorch_tpu/models/detector.py``
-(``make_inference_fn``), with the batch written out where the JAX package
-vmaps a per-image program (``parallel/mesh.make_batched_inference_fn``).
+(``make_inference_fn`` with the RPN or with precomputed proposals, and
+``make_mask_fn``), with the batch written out where the JAX package vmaps a
+per-image program (``parallel/mesh.make_batched_inference_fn``).
 Every stage keeps the JAX package's fixed shapes — padded proposal, roi and
 detection slots with validity masks — and computes on padded and invalid
 slots too, so shapes and kernel launches do not depend on the data.
@@ -192,36 +193,50 @@ def mask_branch(params, cfg: ModelConfig, level_feats, det_boxes, det_classes, i
     return torch.gather(probs, 3, cls)[..., 0].reshape(bsz, k, m, m)
 
 
-def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=roi_align_fwd):
-    """Build the batched inference program for an FPN + RPN `cfg`.
-
-    Returns fn(params, images, im_scale, orig_h, orig_w) -> ModelOutputs:
-      params: {blob: tensor} on the images' device (checkpoint.convert);
-      images: (B, H, W, 3) fp32 NHWC, RGB, mean-subtracted, resized and
-        padded (H, W divisible by 32);
-      im_scale, orig_h, orig_w: (B,) fp32 tensors.
-    `roi_align` is the RoIAlign wrapper (kernel on CUDA tensors); pass the
-    plain ``ops.roi_align.multilevel_roi_align`` only to compare the two.
-    """
+def _check_ported(cfg: ModelConfig):
     if not cfg.use_fpn:
         raise NotImplementedError("the C4 path is not ported yet")
-    if not cfg.use_rpn:
-        raise NotImplementedError("Fast R-CNN (precomputed proposals) is not ported yet")
     if cfg.keypoint is not None:
         raise NotImplementedError("the keypoint branch is not ported yet")
     if cfg.s2d_stem:
         raise NotImplementedError("the space-to-depth stem is a TPU-only layout")
     check_precision(cfg.roi_align_fwd_precision)
+
+
+def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=roi_align_fwd):
+    """Build the batched inference program for an FPN `cfg`.
+
+    Returns fn(params, images, im_scale, orig_h, orig_w[, proposals,
+    proposals_valid]) -> ModelOutputs:
+      params: {blob: tensor} on the images' device (checkpoint.convert);
+      images: (B, H, W, 3) fp32 NHWC, RGB, mean-subtracted, resized and
+        padded (H, W divisible by 32);
+      im_scale, orig_h, orig_w: (B,) fp32 tensors;
+      proposals (B, P, 4) scaled-coordinate rois and proposals_valid (B, P)
+        bool (all valid if omitted): Fast R-CNN mode (cfg.use_rpn False).
+    `roi_align` is the RoIAlign wrapper (kernel on CUDA tensors); pass the
+    plain ``ops.roi_align.multilevel_roi_align`` only to compare the two.
+    """
+    _check_ported(cfg)
     anchor_cache: Dict = {}
 
     @torch.inference_mode()
-    def forward(params, images, im_scale, orig_h, orig_w) -> ModelOutputs:
+    def forward(params, images, im_scale, orig_h, orig_w, proposals=None,
+                proposals_valid=None) -> ModelOutputs:
         x = images.to(compute_dtype(cfg))
-        im_h, im_w = blob_bounds(cfg, images.shape[1:3], im_scale, orig_h, orig_w)
         feats = resnet_mod.multilevel_body(params, x, cfg.arch)
         pyramid = fpn_mod.fpn_neck(params, feats, cfg.arch)
-        props = _fpn_level_proposals(params, cfg, pyramid, im_h, im_w, im_scale, anchor_cache)
-        rois, roi_valid = props.boxes, props.valid
+        if cfg.use_rpn:
+            im_h, im_w = blob_bounds(cfg, images.shape[1:3], im_scale, orig_h, orig_w)
+            props = _fpn_level_proposals(params, cfg, pyramid, im_h, im_w, im_scale,
+                                         anchor_cache)
+            rois, roi_valid = props.boxes, props.valid
+        else:
+            if proposals is None:
+                raise ValueError("Fast R-CNN mode needs proposals")
+            rois = proposals.float()
+            roi_valid = (proposals_valid if proposals_valid is not None
+                         else torch.ones(rois.shape[:2], dtype=torch.bool, device=rois.device))
         cls_scores, bbox_deltas, dets = box_branch(
             params, cfg, test_cfg, pyramid, rois, roi_valid, im_scale, orig_h, orig_w,
             roi_align)
@@ -235,6 +250,33 @@ def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=roi_alig
             cls_scores=cls_scores, bbox_deltas=bbox_deltas, roi_align_exact=exact,
             all_exact=exact & dets.nms_exact,
         )
+
+    return forward
+
+
+def make_mask_fn(cfg: ModelConfig, roi_align=roi_align_fwd):
+    """Mask-only program: final detection boxes -> class-gathered masks.
+
+    fn(params, images, im_scale, orig_h, orig_w, boxes, classes) -> masks
+    (B, K, M, M) fp32, with boxes (B, K, 4) in original-image coords and
+    classes (B, K). orig_h and orig_w are unused; they keep
+    make_inference_fn's argument layout, so the engine wraps both programs
+    alike. The JAX version also returns a RoIAlign exactness flag, always
+    True here. Recomputes the backbone at the given scale: the multi-scale
+    path merges detections from several scales and then runs the mask
+    branch once, at the first scale (Detectron's test-aug flow).
+    """
+    _check_ported(cfg)
+    if not cfg.use_mask:
+        raise ValueError("make_mask_fn needs a mask preset")
+
+    @torch.inference_mode()
+    def forward(params, images, im_scale, orig_h, orig_w, boxes, classes):
+        del orig_h, orig_w
+        feats = resnet_mod.multilevel_body(params, images.to(compute_dtype(cfg)), cfg.arch)
+        pyramid = fpn_mod.fpn_neck(params, feats, cfg.arch)
+        return mask_branch(params, cfg, pyramid, boxes.float(), classes.long(), im_scale,
+                           roi_align)
 
     return forward
 

@@ -123,6 +123,54 @@ def bbox_overlaps(boxes, query_boxes):
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
 
 
+BOX_VOTING_METHODS = ("ID", "TEMP_AVG", "AVG", "IOU_AVG", "GENERALIZED_AVG", "QUASI_SUM")
+
+
+def box_voting(top_boxes, top_scores, all_boxes, all_scores, all_valid,
+               thresh: float, scoring_method: str = "ID", beta: float = 1.0):
+    """Box voting (reference ``boxes.py:280-329``), batched over rows as
+    JAX's ``ops/boxes.box_voting`` runs per row: each kept box becomes the
+    score-weighted mean of the row's valid candidates with IoU >= thresh,
+    and its score is rescored by `scoring_method` (the reference's six).
+
+    top_boxes (M, K, 4), top_scores (M, K); all_boxes (M, N, 4), all_scores
+    (M, N), all_valid (M, N) bool. Returns (voted boxes (M, K, 4), scores
+    (M, K))."""
+    if scoring_method not in BOX_VOTING_METHODS:
+        raise NotImplementedError(scoring_method)
+    ious = bbox_overlaps(top_boxes, all_boxes)  # (M, K, N)
+    vote = (ious >= thresh) & all_valid[:, None, :]
+    zero = torch.zeros_like(ious)
+    w = torch.where(vote, all_scores[:, None, :].expand_as(ious), zero)
+    wsum = torch.clamp_min(w.sum(dim=2, keepdim=True), 1e-12)
+    voted = torch.bmm(w, all_boxes.float()) / wsum
+    cnt = torch.clamp_min(vote.sum(dim=2), 1)
+
+    if scoring_method == "ID":
+        scores = top_scores
+    elif scoring_method == "AVG":
+        scores = w.sum(dim=2) / cnt
+    elif scoring_method == "IOU_AVG":
+        iw = torch.where(vote, ious, zero)
+        scores = (iw * all_scores[:, None, :]).sum(dim=2) / torch.clamp_min(iw.sum(dim=2), 1e-12)
+    elif scoring_method == "GENERALIZED_AVG":
+        p = torch.where(vote, all_scores[:, None, :] ** beta, zero)
+        scores = (p.sum(dim=2) / cnt) ** (1.0 / beta)
+    elif scoring_method == "QUASI_SUM":
+        scores = w.sum(dim=2) / cnt.float() ** beta
+    else:  # TEMP_AVG, reference boxes.py:301-312: each voter's score as the
+        # 2-class distribution [p, 1-p], temperature-smoothed, P(class)
+        # averaged; (p/pmax)**(1/beta) == exp(log(p/pmax)/beta)
+        p = all_scores[:, None, :]
+        q = 1.0 - p
+        pm = torch.maximum(p, q)
+        a = (p / pm) ** (1.0 / beta)
+        b = (q / pm) ** (1.0 / beta)
+        pt = (a / (a + b)).expand_as(ious)
+        scores = torch.where(vote, pt, zero).sum(dim=2) / cnt
+    return voted, scores
+
+
 def filter_boxes_mask(boxes, min_size, scale_factor, im_height, im_width):
     """Proposal min-size / center-inside validity mask, bool (..., N)."""
     min_size = min_size * scale_factor

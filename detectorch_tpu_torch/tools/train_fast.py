@@ -13,13 +13,16 @@ comes from ``data.roidb`` (no JAX); images are read and resized by
       --ann instances_train2014.json --imdir train2014 \\
       --proposals proposals.pkl --out runs/fast_rcnn
 
-Not ported yet, and refused: --e2e, --keypoints, --device-preprocess,
---base-cnn (the caffe2 loader) and the C4 presets (no --fpn).
+--base-cnn loads an ImageNet base CNN from a Detectron ``.pkl``
+(``checkpoint.caffe2_import.import_base_cnn``); the heads keep their random
+init. Not ported yet, and refused: --e2e, --keypoints, --device-preprocess
+and the C4 presets (no --fpn).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 
@@ -33,7 +36,7 @@ def parse_args(argv=None):
                    help="proposal .pkl file; omitted -> train on gt boxes only "
                         "(allowed with --masks)")
     p.add_argument("--base-cnn", default=None,
-                   help="ImageNet base CNN .pkl (not ported yet: refused)")
+                   help="ImageNet base CNN .pkl (Detectron layout)")
     p.add_argument("--arch", default="resnet50", choices=["resnet50", "resnet101"])
     p.add_argument("--fpn", action="store_true")
     p.add_argument("--out", default="runs/fast_rcnn")
@@ -70,9 +73,11 @@ def parse_args(argv=None):
     p.add_argument("--e2e", action="store_true", help="not ported yet: refused")
     p.add_argument("--device", default="cuda", help="torch device to train on")
     args = p.parse_args(argv)
-    for flag in ("e2e", "keypoints", "device_preprocess", "base_cnn"):
+    for flag in ("e2e", "keypoints", "device_preprocess"):
         if getattr(args, flag):
             p.error(f"--{flag.replace('_', '-')} is not ported to PyTorch yet")
+    if args.base_cnn and not os.path.isfile(args.base_cnn):
+        p.error(f"--base-cnn {args.base_cnn}: no such file")
     if not args.fpn:
         p.error("the C4 presets are not ported to PyTorch yet: pass --fpn")
     if not args.masks and not args.proposals:
@@ -89,6 +94,7 @@ def main(argv=None):
     from detectorch_tpu.data import transforms as T
     from detectorch_tpu.train.sampler import sample_rois
     from detectorch_tpu.utils.stats import TrainingStats
+    from detectorch_tpu_torch.checkpoint import caffe2_import as c2
     from detectorch_tpu_torch.checkpoint import store
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.data.roidb import roidb_for_training
@@ -120,7 +126,11 @@ def main(argv=None):
     fg_rows = int(np.round(sampler_cfg.fg_fraction * sampler_cfg.rois_per_image))
     mask_res = cfg.mask.resolution if args.masks else 0
 
-    params = params_to_device(params_from_jax(init_params(cfg, seed=args.seed)), device)
+    params = params_from_jax(init_params(cfg, seed=args.seed))
+    if args.base_cnn:
+        params.update(c2.import_base_cnn(c2.load_caffe2_pkl(args.base_cnn), cfg.arch))
+        print("loaded base CNN weights", flush=True)
+    params = params_to_device(params, device)
     state, optimizer = init_state(params)
     del params
     step_fn = make_step(optimizer)

@@ -186,7 +186,67 @@ def test_postprocess_ties_and_prefilter_match_jax(rng, prefilter):
     assert int(d.valid.sum(dim=1).max()) > 10  # ties at the cap survived
 
 
-@pytest.mark.parametrize("preset", ["e2e_mask_rcnn_R-50-C4_2x", "fast_rcnn_R-50-FPN_2x",
+def test_mask_fn_on_jax_detections(run):
+    """make_mask_fn recomputes the backbone and runs the mask branch on given
+    boxes: on JAX's final detections it equals JAX's make_mask_fn."""
+    (images, scale, orig_h, orig_w), jp, tp, _, jout = run
+    masks = tdet.make_mask_fn(CFG)(
+        tp, *map(_t, (images, scale, orig_h, orig_w)),
+        _t(np.stack([j.detections.boxes for j in jout])),
+        _t(np.stack([j.detections.classes for j in jout])))
+    assert masks.shape == (2, 24, 28, 28)
+    jmask = jax.jit(jdet.make_mask_fn(CFG))
+    for b, jo in enumerate(jout):
+        jm, _ = jmask(jp, images[b], jnp.float32(scale[b]), jnp.float32(orig_h[b]),
+                      jnp.float32(orig_w[b]), jo.detections.boxes, jo.detections.classes)
+        np.testing.assert_allclose(masks[b].numpy(), np.asarray(jm), rtol=0, atol=ATOL)
+    with pytest.raises(ValueError):
+        tdet.make_mask_fn(PRESETS["fast_rcnn_R-50-FPN_2x"])
+
+
+def test_fast_rcnn_fpn_matches_jax(rng):
+    """Fast R-CNN FPN inference from given proposals: the same rois, and the
+    box branch's scores and deltas within ATOL of JAX's per-image program."""
+    cfg = PRESETS["fast_rcnn_R-50-FPN_2x"].replace(compute_dtype="float32",
+                                                   use_pallas_roi_align=False)
+    jp = jdet.init_params(cfg, seed=9)
+    tp = params_from_jax(tdet.init_params(cfg, seed=9))
+    images = (rng.randn(2, 96, 128, 3) * 12).astype(np.float32)
+    scale = np.array([1.2, 1.1], np.float32)
+    orig_h = np.array([80.0, 70.0], np.float32)
+    orig_w = np.array([106.0, 110.0], np.float32)
+    x1 = rng.uniform(0, 90, (2, 32))
+    y1 = rng.uniform(0, 60, (2, 32))
+    props = np.stack([x1, y1, x1 + rng.uniform(4, 60, (2, 32)),
+                      y1 + rng.uniform(4, 40, (2, 32))], -1).astype(np.float32)
+    valid = np.ones((2, 32), bool)
+    valid[1, 20:] = False
+    out = tdet.make_inference_fn(cfg, TCFG)(tp, *map(_t, (images, scale, orig_h, orig_w)),
+                                            _t(props), _t(valid))
+    jfwd = jax.jit(jdet.make_inference_fn(cfg, TCFG))
+    for b in range(2):
+        jo = jfwd(jp, images[b], jnp.float32(scale[b]), jnp.float32(orig_h[b]),
+                  jnp.float32(orig_w[b]), props[b], valid[b])
+        assert torch.equal(out.rois[b], _t(props[b])) and out.masks is None
+        np.testing.assert_array_equal(out.roi_valid[b].numpy(), np.asarray(jo.roi_valid))
+        np.testing.assert_allclose(out.cls_scores[b].numpy(), np.asarray(jo.cls_scores),
+                                   rtol=0, atol=ATOL)
+        np.testing.assert_allclose(out.bbox_deltas[b].numpy(), np.asarray(jo.bbox_deltas),
+                                   rtol=0, atol=ATOL)
+        d, jd = out.detections, jo.detections
+        assert int(d.valid[b].sum()) == int(np.asarray(jd.valid).sum()) >= 16
+        np.testing.assert_allclose(np.sort(d.scores[b][d.valid[b]].numpy()),
+                                   np.sort(np.asarray(jd.scores)[np.asarray(jd.valid)]),
+                                   rtol=0, atol=ATOL)
+    # without a validity mask every proposal is valid
+    all_valid = tdet.make_inference_fn(cfg, TCFG)(tp, *map(_t, (images, scale, orig_h, orig_w)),
+                                                  _t(props))
+    assert all_valid.roi_valid.all()
+    with pytest.raises(ValueError):
+        tdet.make_inference_fn(cfg, TCFG)(tp, *map(_t, (images, scale, orig_h, orig_w)))
+
+
+@pytest.mark.parametrize("preset", ["e2e_mask_rcnn_R-50-C4_2x", "fast_rcnn_R-50-C4_2x",
                                     "e2e_keypoint_rcnn_R-50-FPN_1x"])
 def test_unported_branches_raise(preset):
     with pytest.raises(NotImplementedError):

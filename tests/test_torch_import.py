@@ -17,9 +17,9 @@ import detectorch_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _python(args, cwd, timeout=300):
+def _python(args, cwd, timeout=300, env=None):
     return subprocess.run([sys.executable, *args], cwd=cwd, capture_output=True, text=True,
-                          timeout=timeout)
+                          timeout=timeout, env=env)
 
 
 def _port_modules():
@@ -33,6 +33,8 @@ def test_port_imports_without_jax():
     assert "detectorch_tpu_torch.ops.cuda.roi_align_kernel" in mods
     assert "detectorch_tpu_torch.train.train_step" in mods
     assert "detectorch_tpu_torch.tools.train_fast" in mods
+    assert "detectorch_tpu_torch.eval.engine" in mods
+    assert "detectorch_tpu_torch.tools.eval_coco" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "leaked = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
@@ -78,6 +80,55 @@ print("LEAKED", leaked)
 sys.exit(1 if leaked else 0)
 """
     proc = _python(["-c", code], cwd=REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_eval_path_runs_without_jax(tmp_path):
+    # in-memory uint8 images through load_image, device_preprocess, the
+    # batched engine, the COCO conversion and COCOeval, a caffe2 pkl in
+    # between: the eval path of chip_smoke.py's phase 9, tiny and on the CPU
+    code = """
+import json, os, sys
+import numpy as np
+from detectorch_tpu.config import PRESETS, RPNConfig, TestConfig
+from detectorch_tpu.data.coco import CocoDataset
+from detectorch_tpu.eval import rle
+from detectorch_tpu_torch.checkpoint import caffe2_import as c2
+from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+from detectorch_tpu_torch.eval.engine import evaluate_dataset
+from detectorch_tpu_torch.models.detector import init_params
+
+rng = np.random.RandomState(0)
+images, anns, imgs = {}, [], []
+for i in range(3):
+    h, w = (48, 64) if i < 2 else (64, 48)
+    images[f"im{i}.png"] = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+    m = np.zeros((h, w), np.uint8)
+    m[8:30, 10:40] = 1
+    imgs.append({"id": i + 1, "file_name": f"im{i}.png", "height": h, "width": w})
+    anns.append({"id": i + 1, "image_id": i + 1, "category_id": 1, "bbox": [10, 8, 30, 22],
+                 "area": 660.0, "iscrowd": 0, "segmentation": rle.encode(m)})
+tmp = sys.argv[1]
+with open(os.path.join(tmp, "ann.json"), "w") as f:
+    json.dump({"images": imgs, "annotations": anns,
+               "categories": [{"id": c, "name": str(c)} for c in range(1, 81)]}, f)
+cfg = PRESETS["e2e_mask_rcnn_R-50-FPN_2x"].replace(
+    compute_dtype="float32", rpn=RPNConfig(pre_nms_top_n=60, post_nms_top_n=16))
+c2.save_caffe2_pkl(params_from_jax(init_params(cfg, seed=0)), cfg, os.path.join(tmp, "m.pkl"))
+params = c2.fold_bn(c2.import_params(c2.load_caffe2_pkl(os.path.join(tmp, "m.pkl")), cfg))
+tcfg = TestConfig(target_size=48, max_size=64, detections_per_img=4, score_thresh=0.0,
+                  exact_blob_dims=True, device_preprocess=True)
+bbox, segm, info = evaluate_dataset(
+    cfg, tcfg, params, CocoDataset(os.path.join(tmp, "ann.json"), tmp), verbose=False,
+    batch_size=2, load_image=lambda p: images[os.path.basename(p)], device="cpu")
+assert len(bbox) == len(segm) == 12 and len(info["segm"]) == 12, (bbox, segm)
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+print("LEAKED", leaked)
+sys.exit(1 if leaked else 0)
+"""
+    # the Tier-1 command's six workers share the cores: one torch thread
+    proc = _python(["-c", code, str(tmp_path)], cwd=REPO,
+                   env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

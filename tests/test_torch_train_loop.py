@@ -175,8 +175,9 @@ def test_checkpoint_resume_is_exact(rng, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--e2e"], ["--keypoints"], ["--device-preprocess"],
-                                  ["--base-cnn", "R-50.pkl"], []])
+                                  ["--base-cnn", "missing-R-50.pkl"], []])
 def test_cli_refuses_unported_modes(flag):
+    # --base-cnn is ported; a base CNN file that does not exist is refused
     fpn = [] if not flag else ["--fpn"]  # no --fpn: the C4 presets
     with pytest.raises(SystemExit):
         train_fast.parse_args(["--ann", "a.json", "--imdir", "im", "--masks", *fpn, *flag])
@@ -208,3 +209,41 @@ def test_cli_trains_and_resumes(tmp_path):
     assert f"resumed from {os.path.join(out, 'ckpt-2')} at iter 2" in second.stdout
     assert second.stdout.count("json_stats") == 1 and '"iter": 2' in second.stdout
     assert os.path.exists(os.path.join(out, "ckpt-3"))
+
+
+def test_cli_trains_from_a_base_cnn(tmp_path):
+    """--base-cnn: an ImageNet base CNN pkl written by the JAX package's
+    caffe2 exporter (backbone blobs only) is loaded before 2 iterations of
+    Fast R-CNN training on the CPU."""
+    import pickle
+
+    from detectorch_tpu.checkpoint import caffe2_import as jc2
+    from detectorch_tpu.data.synth import build_synth_coco, write_proposals_pkl
+    from detectorch_tpu.models.resnet import init_resnet_params
+
+    ann, imdir = build_synth_coco(str(tmp_path / "ds"), n_images=2, height=96, width=128,
+                                  seed=8)
+    props = write_proposals_pkl(ann, str(tmp_path / "props.pkl"))
+    backbone = init_resnet_params("resnet50", include_c5=True, seed=11)
+    base = str(tmp_path / "R-50.pkl")
+    with open(base, "wb") as f:
+        pickle.dump({"blobs": jc2.export_to_caffe2_layout(
+            backbone, PRESETS["fast_rcnn_R-50-FPN_2x"])}, f, protocol=2)
+    out = str(tmp_path / "run")
+    proc = subprocess.run(
+        [sys.executable, "-m", "detectorch_tpu_torch.tools.train_fast", "--ann", ann,
+         "--imdir", imdir, "--proposals", props, "--fpn", "--base-cnn", base, "--out", out,
+         "--max-iter", "2", "--checkpoint-period", "2", "--log-period", "1",
+         "--base-lr", "0.001", "--target-size", "96", "--max-size", "128",
+         "--blob", "96", "128", "--rois-per-image", "16", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        # the Tier-1 command's six workers share the cores: one torch thread
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "loaded base CNN weights" in proc.stdout and proc.stdout.count("json_stats") == 2
+    saved = store.restore_checkpoint(os.path.join(out, "ckpt-2"))["params"]
+    # conv1 and res2 are frozen: they hold the base CNN's values, in the
+    # port's layout (conv1 flipped back from caffe2's BGR to RGB)
+    exp = params_from_jax({k: backbone[k] for k in ("conv1_w", "res2_0_branch2a_w")})
+    for k, v in exp.items():
+        assert torch.equal(saved[k], v), k
