@@ -13,7 +13,9 @@ Phases — each passes or the script exits non-zero:
   3. the forward kernel against its plain PyTorch version on the card, at
      the inference and eval paths' shapes (batch 8 pyramids at 832x1344 and
      at 1344x832, C = 256; 1000 rois per image at 7x7 and 108 at 14x14),
-     bf16 and fp32 features, with CUDA-event times of both at 832x1344;
+     bf16 and fp32 features, with CUDA-event times of both at 832x1344 and
+     each call's bound (the feature bytes its rois touch, counted on the
+     card, read once and the output written once) and share of it;
   4. the inference path: e2e_mask_rcnn_R-50-FPN_2x, bf16, batch 8 at
      832x1344, random weights from init_params(seed 0); one warm-up request,
      then three timed requests, with the kernel's launch count checked;
@@ -22,9 +24,16 @@ Phases — each passes or the script exits non-zero:
      within tolerance;
   6. the backward kernel against its plain version at the training shapes
      (batch 8 pyramids at 832x1344, C = 256; 512 rois per image at 7x7 and
-     128 at 14x14), bf16 and fp32 gradients: fp32 within 1e-5 * max|plain|,
-     bf16 equal to the fp32 result rounded once, two launches bitwise
-     equal, CUDA-event times of both;
+     128 at 14x14), over random rois and over rois half of which crowd
+     around 4 boxes per image, as sampled foreground rois do; bf16 and fp32
+     gradients: fp32 within 1e-5 * max|plain|, bf16 equal to the fp32
+     result rounded once, two launches bitwise equal, CUDA-event times of
+     both with each call's bound (g read once, the gradient pyramid written
+     once) and share of it; then 3000 rois on one P2 tile, a list past the
+     kernel's shared-memory sort, at 7x7 and 14x14: the kernel within
+     1e-5 * max|sum| of the float64 sum of the same terms (the plain
+     version's distance from it printed beside), two launches bitwise
+     equal, bf16 equal to fp32 rounded once;
   7. the training path: e2e_mask_rcnn_R-50-FPN_2x with the mask branch,
      bf16, batch 8 at 832x1344, 512 rois and 128 mask rows per image, from
      synthetic roidb entries; one warm-up step, three timed steps (ms/step,
@@ -44,7 +53,9 @@ Phases — each passes or the script exits non-zero:
      fp32, the batched engine's results for the first 4 images equal to the
      single-image engine's.
 
-The line before the last is a JSON summary of the kernels; the last line is
+The line before the last is a JSON summary of the kernels (their times and
+bounds are those of the bf16 7x7 call; "calls" lists every timed call), the
+line before it nvidia-smi's name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
 """
@@ -75,6 +86,9 @@ CLS_ATOL, DELTA_ATOL, MASK_ATOL = 1e-5, 1e-4, 1e-4
 # 1/count, summed per pixel in another order (the kernel by roi and bin, the
 # plain version by index_add_)
 BWD_REL = 1e-5
+# rois on one tile in phase 6's dense case: more than the backward kernel
+# sorts in shared memory (2048)
+DENSE_ROIS = 3000
 # fp32 training step, one image: gradients through the kernels against the
 # plain versions, per trainable leaf, max|d| <= GRAD_REL * max|g|. With the
 # kernel forward on both sides every activation is equal, so the backward
@@ -87,6 +101,11 @@ GRAD_REL, GRAD_COS, FLIP_REL = 1e-4, 0.9999, 1e-2
 # 832x1344 and 1344x832 buckets, each with a short tail batch
 EVAL_IMAGES = ((480, 640, 27), (640, 480, 9))
 PARITY_IMAGES = 4
+# the least time of a kernel call (NVIDIA's data sheet, H100 SXM at
+# 700 W): its bytes over the memory rate, or its fp32
+# operations over the CUDA cores' rate, whichever is larger
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -157,6 +176,110 @@ def make_rois(gen, batch, n, height, width, device):
     return rois
 
 
+def make_clustered_rois(gen, batch, n, height, width, device):
+    """make_rois, with the last half of each image's rois jittered around 4
+    boxes (by up to 10% of their size), as sampled foreground rois crowd
+    around their gt boxes; the boxes are 24 px to 0.6 of the short side."""
+    import math
+
+    import torch
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    rois = make_rois(gen, batch, n, height, width, device)
+    lo, hi = math.log(24.0), math.log(0.6 * min(height, width))
+    wh = torch.exp(lo + u(batch, 4, 2) * (hi - lo))
+    xy = u(batch, 4, 2) * (torch.tensor([width, height], device=device) - wh)
+    boxes = torch.cat([xy, xy + wh], dim=-1)  # (B, 4, 4)
+    k = n // 2
+    pick = (u(batch, k) * 4).long().clamp_max(3)
+    base = torch.gather(boxes, 1, pick[..., None].expand(batch, k, 4))
+    size = (base[..., 2:] - base[..., :2]).repeat(1, 1, 2)
+    rois[:, n - k:] = base + (u(batch, k, 4) - 0.5) * 0.2 * size
+    return rois
+
+
+def make_dense_rois(gen, n, height, width, device):
+    """(n, 4) rois of one image that all cover the P2 tile at its centre:
+    40 to 100 px (so they map to P2), centred within 8 px of it."""
+    import torch
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    centre = torch.tensor([width / 2, height / 2], device=device) + (u(n, 2) - 0.5) * 16.0
+    half = (40.0 + u(n, 2) * 60.0) / 2
+    return torch.cat([centre - half, centre + half], dim=-1)
+
+
+def plain_bwd_f64(g, shapes, rois, bidx, levels, scales, pooled_h, pooled_w, sampling_ratio):
+    """multilevel_roi_align_backward's sum in float64: the same fp32 taps,
+    weights and 1/count, products and sums in float64; a witness of the
+    exact sum that both fp32 orders round."""
+    import torch
+
+    from detectorch_tpu_torch.ops.roi_align import _bilinear_taps
+
+    idx, wts, inv_count, sizes, s = _bilinear_taps([tuple(f[:3]) for f in shapes], rois, bidx,
+                                                   levels, scales, pooled_h, pooled_w, sampling_ratio, 8)
+    r, channels = rois.shape[0], shapes[0][-1]
+    gs = g.double() * inv_count.double()[:, None, None, None]
+    gs = gs[:, :, :, None, None, :].expand(r, pooled_h, pooled_w, s, s, channels) \
+        .reshape(r, pooled_h * pooled_w * s * s, channels)
+    flat = torch.zeros((sum(sizes), channels), dtype=torch.float64, device=g.device)
+    for i, w in zip(idx, wts):
+        flat.index_add_(0, i.reshape(-1), (gs * w.double()[..., None]).reshape(-1, channels))
+    return [part.reshape(tuple(shape)) for part, shape in zip(flat.split(sizes), shapes)]
+
+
+def roofline(nbytes: float, flops: float):
+    """(bound_ms, bound_by) of a call that moves `nbytes` and does `flops`."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def roi_align_work(level_shapes, rois, bidx, levels, scales, pooled, channels):
+    """What one RoIAlign call over these rois needs: the feature pixels its
+    live samples' taps touch (each counted once) and the fp32 operations of
+    its taps (an FMA per live tap and channel)."""
+    import torch
+
+    from detectorch_tpu_torch.ops.roi_align import _bilinear_taps
+
+    idx, wts, *_ = _bilinear_taps([s[:3] for s in level_shapes], rois, bidx, levels, scales,
+                                  pooled, pooled, 2, 8)
+    live = wts[0] != 0  # hy * hx > 0 for every live sample
+    pixels = torch.unique(torch.cat([i[live] for i in idx])).numel()
+    return pixels, 2 * 4 * int(live.sum()) * channels
+
+
+def fwd_bound(feats, rois, bidx, levels, scales, pooled):
+    """The forward's least time: the touched feature bytes read once, rois
+    and indices read, the fp32 output written, or its operations."""
+    channels = feats[0].shape[-1]
+    pixels, flops = roi_align_work([f.shape for f in feats], rois, bidx, levels, scales,
+                                   pooled, channels)
+    r = rois.shape[0]
+    nbytes = (pixels * channels * feats[0].element_size() + 24 * r
+              + r * pooled * pooled * channels * 4)
+    return roofline(nbytes, flops)
+
+
+def bwd_bound(shapes, rois, bidx, levels, scales, pooled, out_dtype):
+    """The backward's least time: g, rois and indices read once, the whole
+    gradient pyramid written once, or its operations."""
+    import torch
+
+    channels = shapes[0][-1]
+    _, flops = roi_align_work(shapes, rois, bidx, levels, scales, pooled, channels)
+    r = rois.shape[0]
+    out_bytes = sum(b * h * w * c for b, h, w, c in shapes) \
+        * torch.empty((), dtype=out_dtype).element_size()
+    return roofline(r * pooled * pooled * channels * 4 + 24 * r + out_bytes, flops)
+
+
 def phase_device():
     import torch
 
@@ -192,7 +315,7 @@ def phase_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
     the summary, whose times are the landscape bf16 7x7 call's."""
     import torch
 
-    from detectorch_tpu.config import PRESETS
+    from detectorch_tpu_torch.config import PRESETS
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
     from detectorch_tpu_torch.ops.fpn_levels import map_rois_to_fpn_levels
     from detectorch_tpu_torch.ops.roi_align import multilevel_roi_align
@@ -200,7 +323,7 @@ def phase_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
     scales = PRESETS[PRESET].fpn_spatial_scales
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    summary = {"max_abs_err": 0.0}
+    summary = {"max_abs_err": 0.0, "calls": []}
     for h, w in ((height, width), (width, height)):
         timed = timing and (h, w) == (height, width)
         for dtype in (torch.bfloat16, torch.float32):
@@ -222,11 +345,17 @@ def phase_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
                     ms = cuda_time_ms(lambda: roi_align_fwd(*args), iters=20)
                     plain_ms = cuda_time_ms(lambda: multilevel_roi_align(*args), iters=3,
                                             warmup=1)
+                    bound_ms, bound_by = fwd_bound(feats, rois, bidx, levels, scales, pooled)
                     r = batch * n
                     msg += (f"; kernel {ms:.4f} ms ({ms * 1e3 / r:.4f} us/roi), "
-                            f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / r:.4f} us/roi)")
+                            f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / r:.4f} us/roi); "
+                            f"bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}")
+                    summary["calls"].append({
+                        "call": f"{str(dtype)[6:]} {pooled}x{pooled} {r} rois", "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
                     if dtype == torch.bfloat16 and pooled == 7:
-                        summary["ms"], summary["plain_ms"] = ms, plain_ms
+                        summary.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by)
                 log(msg)
                 check(err <= KERNEL_ATOL, f"kernel disagrees with plain version: {err}")
                 check(bool(torch.isfinite(got).all()), "kernel output not finite")
@@ -284,7 +413,7 @@ def phase_main_path(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
                     test_cfg=None, requests=3, card=""):
     import torch
 
-    from detectorch_tpu.config import PRESETS, TestConfig
+    from detectorch_tpu_torch.config import PRESETS, TestConfig
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.models.detector import init_params, make_inference_fn
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
@@ -331,7 +460,7 @@ def phase_fp32_parity(device, params, height=HEIGHT, width=WIDTH, cfg=None, test
     """One image in fp32: the whole path with the kernel vs the plain RoIAlign."""
     import torch
 
-    from detectorch_tpu.config import PRESETS, TestConfig
+    from detectorch_tpu_torch.config import PRESETS, TestConfig
     from detectorch_tpu_torch.models import fpn as fpn_mod
     from detectorch_tpu_torch.models import resnet as resnet_mod
     from detectorch_tpu_torch.models.detector import make_inference_fn, mask_branch
@@ -375,12 +504,13 @@ def phase_fp32_parity(device, params, height=HEIGHT, width=WIDTH, cfg=None, test
 
 def phase_bwd_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
                      timing=True):
-    """Backward kernel vs plain backward at the training shapes; returns the
-    summary."""
+    """Backward kernel vs plain backward at the training shapes, over random
+    rois and over rois clustered as sampled foreground rois are; returns the
+    summary, whose times are the random bf16 7x7 call's."""
     import torch
 
-    from detectorch_tpu.config import PRESETS
-    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd
+    from detectorch_tpu_torch.config import PRESETS
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_tile_lists
     from detectorch_tpu_torch.ops.fpn_levels import map_rois_to_fpn_levels
     from detectorch_tpu_torch.ops.roi_align import multilevel_roi_align_backward
 
@@ -388,45 +518,97 @@ def phase_bwd_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=2
     shapes = [(batch, height // s, width // s, channels) for s in (4, 8, 16, 32)]
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
-    summary = {"max_rel_err": 0.0}
+    summary = {"max_rel_err": 0.0, "max_abs_err": 0.0, "calls": []}
     for pooled, n in ((7, TRAIN_ROIS), (14, TRAIN_MASK_ROWS)):
-        rois = make_rois(gen, batch, n, height, width, device).reshape(-1, 4).contiguous()
+        for kind, make in (("random", make_rois), ("clustered", make_clustered_rois)):
+            rois = make(gen, batch, n, height, width, device).reshape(-1, 4).contiguous()
+            levels = (map_rois_to_fpn_levels(rois) - 2).contiguous()
+            bidx = torch.arange(batch, dtype=torch.int32, device=device).repeat_interleave(n)
+            g = torch.randn((batch * n, pooled, pooled, channels), generator=gen, device=device)
+            args = (g, shapes, rois, bidx, levels, scales, pooled, pooled, 2)
+            ref = multilevel_roi_align_backward(*args)
+            got = roi_align_bwd(*args)
+            again = roi_align_bwd(*args)
+            got_bf16 = roi_align_bwd(*args, out_dtype=torch.bfloat16)
+            scale = max(r.abs().max().item() for r in ref)
+            err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            rounded = all(b.dtype == torch.bfloat16 and torch.equal(b, a.to(torch.bfloat16))
+                          for a, b in zip(got, got_bf16))
+            summary["max_rel_err"] = max(summary["max_rel_err"], err / scale)
+            summary["max_abs_err"] = max(summary["max_abs_err"], err)
+            msg = (f"[6 bwd] {kind} {pooled}x{pooled} x {batch}x{n} rois: max|kernel - plain| = "
+                   f"{err:.3g} = {err / scale:.3g} of max|plain| {scale:.3g} (tol {BWD_REL:g}); "
+                   f"two launches equal: {same}; bf16 = fp32 rounded once: {rounded}")
+            if timing:
+                for dtype in (torch.bfloat16, torch.float32):
+                    ms = cuda_time_ms(lambda: roi_align_bwd(*args, out_dtype=dtype), iters=20)
+                    plain_ms = cuda_time_ms(
+                        lambda: multilevel_roi_align_backward(*args, out_dtype=dtype),
+                        iters=3, warmup=1)
+                    bound_ms, bound_by = bwd_bound(shapes, rois, bidx, levels, scales, pooled,
+                                                   dtype)
+                    r = batch * n
+                    msg += (f"; {str(dtype)[6:]} kernel {ms:.4f} ms ({ms * 1e3 / r:.4f} us/roi), "
+                            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                            f"share {bound_ms / ms:.3f}")
+                    summary["calls"].append({
+                        "call": f"{kind} {str(dtype)[6:]} out {pooled}x{pooled} {r} rois",
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by})
+                    if kind == "random" and dtype == torch.bfloat16 and pooled == 7:
+                        summary.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by)
+            log(msg)
+            check(err <= BWD_REL * scale, f"backward kernel disagrees with plain version: {err}")
+            check(same, "two launches of the backward kernel differ")
+            check(rounded, "bf16 gradient is not the fp32 gradient rounded once")
+            check(all(bool(torch.isfinite(a).all()) for a in got),
+                  "backward kernel output not finite")
+            del ref, got, again, got_bf16
+    # a tile list longer than the kernel's shared-memory sort (2048 rois),
+    # sorted in device memory: DENSE_ROIS rois of image 0 on one P2 tile,
+    # held, as the plain version is, to the float64 sum of the same terms
+    for pooled in (7, 14):
+        rois = make_dense_rois(gen, DENSE_ROIS, height, width, device)
         levels = (map_rois_to_fpn_levels(rois) - 2).contiguous()
-        bidx = torch.arange(batch, dtype=torch.int32, device=device).repeat_interleave(n)
-        g = torch.randn((batch * n, pooled, pooled, channels), generator=gen, device=device)
+        bidx = torch.zeros(DENSE_ROIS, dtype=torch.int32, device=device)
+        g = torch.randn((DENSE_ROIS, pooled, pooled, channels), generator=gen, device=device)
         args = (g, shapes, rois, bidx, levels, scales, pooled, pooled, 2)
+        exact = plain_bwd_f64(*args)
         ref = multilevel_roi_align_backward(*args)
         got = roi_align_bwd(*args)
         again = roi_align_bwd(*args)
         got_bf16 = roi_align_bwd(*args, out_dtype=torch.bfloat16)
-        scale = max(r.abs().max().item() for r in ref)
-        err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+        scale = max(e.abs().max().item() for e in exact)
+        err = max((a - e).abs().max().item() for a, e in zip(got, exact))
+        plain_err = max((r - e).abs().max().item() for r, e in zip(ref, exact))
+        vs_plain = max((a - r).abs().max().item() for a, r in zip(got, ref))
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        rounded = all(b.dtype == torch.bfloat16 and torch.equal(b, a.to(torch.bfloat16))
-                      for a, b in zip(got, got_bf16))
-        summary["max_rel_err"] = max(summary["max_rel_err"], err / scale)
-        summary.setdefault("max_abs_err", 0.0)
-        summary["max_abs_err"] = max(summary["max_abs_err"], err)
-        msg = (f"[6 bwd] {pooled}x{pooled} x {batch}x{n} rois: max|kernel - plain| = {err:.3g} "
-               f"= {err / scale:.3g} of max|plain| {scale:.3g} (tol {BWD_REL:g}); "
-               f"two launches equal: {same}; bf16 = fp32 rounded once: {rounded}")
+        rounded = all(torch.equal(b, a.to(torch.bfloat16)) for a, b in zip(got, got_bf16))
+        starts, _ = roi_tile_lists(shapes, rois, bidx, levels, scales, pooled, pooled)
+        longest = int((starts[1:] - starts[:-1]).max())
+        msg = (f"[6 bwd] dense {pooled}x{pooled} x {DENSE_ROIS} rois, {longest} on one tile: "
+               f"max|kernel - f64| = {err:.3g} = {err / scale:.3g}, max|plain - f64| = "
+               f"{plain_err:.3g} = {plain_err / scale:.3g} of max|f64| {scale:.3g} (tol "
+               f"{BWD_REL:g}); max|kernel - plain| = {vs_plain:.3g}; two launches equal: "
+               f"{same}; bf16 = fp32 rounded once: {rounded}")
         if timing:
-            for dtype in (torch.bfloat16, torch.float32):
-                ms = cuda_time_ms(lambda: roi_align_bwd(*args, out_dtype=dtype), iters=20)
-                plain_ms = cuda_time_ms(
-                    lambda: multilevel_roi_align_backward(*args, out_dtype=dtype),
-                    iters=3, warmup=1)
-                r = batch * n
-                msg += (f"; {str(dtype)[6:]} kernel {ms:.4f} ms ({ms * 1e3 / r:.4f} us/roi), "
-                        f"plain {plain_ms:.4f} ms")
-                if dtype == torch.bfloat16 and pooled == 7:
-                    summary["ms"], summary["plain_ms"] = ms, plain_ms
+            ms = cuda_time_ms(lambda: roi_align_bwd(*args, out_dtype=torch.bfloat16), iters=20)
+            bound_ms, bound_by = bwd_bound(shapes, rois, bidx, levels, scales, pooled,
+                                           torch.bfloat16)
+            msg += (f"; bf16 kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                    f"share {bound_ms / ms:.3f}")
+            summary["calls"].append({
+                "call": f"dense bf16 out {pooled}x{pooled} {DENSE_ROIS} rois", "ms": ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "err_vs_f64": err,
+                "plain_err_vs_f64": plain_err})
         log(msg)
-        check(err <= BWD_REL * scale, f"backward kernel disagrees with plain version: {err}")
-        check(same, "two launches of the backward kernel differ")
-        check(rounded, "bf16 gradient is not the fp32 gradient rounded once")
-        check(all(bool(torch.isfinite(a).all()) for a in got), "backward kernel output not finite")
-        del ref, got, again, got_bf16
+        check(longest == DENSE_ROIS, f"the longest tile list holds {longest} rois")
+        check(err <= BWD_REL * scale, f"backward kernel is {err} from the float64 sum")
+        check(same, "two launches of the backward kernel differ on a dense tile")
+        check(rounded, "bf16 gradient is not the fp32 gradient rounded once on a dense tile")
+        del exact, ref, got, again, got_bf16
     empty = roi_align_bwd(g[:0], shapes, rois[:0], bidx[:0], levels[:0], scales, 14, 14, 2)
     check(all(not e.any() for e in empty), "backward kernel over no rois is not zero")
     return summary
@@ -441,10 +623,13 @@ def make_train_batch(rng, batch, height, width, num_classes, rois_per_image, mas
     import numpy as np
     import torch
 
-    from detectorch_tpu.config import SamplerConfig
-    from detectorch_tpu.data.coco import RoidbEntry, _np_bbox_overlaps
-    from detectorch_tpu.train.sampler import sample_rois
-    from detectorch_tpu_torch.data.roidb import add_bbox_regression_targets
+    from detectorch_tpu_torch.config import SamplerConfig
+    from detectorch_tpu_torch.data.coco import (
+        RoidbEntry,
+        _np_bbox_overlaps,
+        add_bbox_regression_targets,
+    )
+    from detectorch_tpu_torch.train.sampler import sample_rois
 
     keys = ("rois", "labels", "bbox_targets", "bbox_inside_weights", "bbox_outside_weights",
             "valid")
@@ -492,7 +677,7 @@ def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     import numpy as np
     import torch
 
-    from detectorch_tpu.config import PRESETS, SolverConfig
+    from detectorch_tpu_torch.config import PRESETS, SolverConfig
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.models.detector import init_params
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
@@ -593,7 +778,7 @@ def phase_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, rois_per_imag
     import numpy as np
     import torch
 
-    from detectorch_tpu.config import PRESETS, SolverConfig
+    from detectorch_tpu_torch.config import PRESETS, SolverConfig
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.models.detector import init_params
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
@@ -673,7 +858,7 @@ def make_eval_set(root, images, rng, num_categories=80):
     them through its load_image, so no image file is written or decoded."""
     import numpy as np
 
-    from detectorch_tpu.eval import rle
+    from detectorch_tpu_torch.eval import rle
 
     pics, imgs, anns = {}, [], []
     for h, w, count in images:
@@ -745,9 +930,9 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
     import numpy as np
     import torch
 
-    from detectorch_tpu.config import PRESETS, TestConfig
-    from detectorch_tpu.data.coco import CocoDataset
-    from detectorch_tpu.eval import rle
+    from detectorch_tpu_torch.config import PRESETS, TestConfig
+    from detectorch_tpu_torch.data.coco import CocoDataset
+    from detectorch_tpu_torch.eval import rle
     from detectorch_tpu_torch.checkpoint import caffe2_import as c2
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax
     from detectorch_tpu_torch.eval.engine import evaluate_dataset
@@ -875,6 +1060,10 @@ def main() -> int:
         "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"],
         "plain_ms": summary["plain_ms"],
+        "bound_ms": summary["bound_ms"],
+        "bound_by": summary["bound_by"],
+        "library_ms": None,  # no PyTorch call computes caffe2 RoIAlign
+        "calls": summary["calls"],
     }, {
         "name": "roi_align_bwd",
         "route": "cuda",
@@ -885,6 +1074,10 @@ def main() -> int:
         "max_abs_err": bwd_summary["max_abs_err"],
         "ms": bwd_summary["ms"],
         "plain_ms": bwd_summary["plain_ms"],
+        "bound_ms": bwd_summary["bound_ms"],
+        "bound_by": bwd_summary["bound_by"],
+        "library_ms": None,  # nor its feature gradient
+        "calls": bwd_summary["calls"],
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))

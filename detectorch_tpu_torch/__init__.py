@@ -2,12 +2,10 @@
 
 The JAX package ``detectorch_tpu`` is the reference; this package mirrors its
 module names so each function has an obvious counterpart. It imports
-``torch`` and never ``jax``: from the JAX package it takes only modules that
-stay free of JAX when called — ``detectorch_tpu.config`` (``PRESETS`` and the
-config dataclasses), the host-side data path (``data.coco``,
-``data.transforms``, ``data.loader``, ``train.sampler.sample_rois`` with
-targets set), the host-side evaluation (``eval.rle``, ``eval.mask_paste``,
-``eval.coco_eval``, ``eval.results_io``) and ``utils.stats``.
+``torch`` and never ``jax``, and no module of the JAX package: the host
+modules it needs (``config``, ``data/{coco,transforms,loader}``,
+``train/sampler``, ``eval/{rle,coco_eval,mask_paste,results_io}``,
+``utils/{stats,timer}``) are its own copies, under the same paths.
 
 The FPN RoIAlign forward and its feature gradient run as hand-written CUDA
 kernels (``csrc/roi_align_fwd.cu``, ``csrc/roi_align_bwd.cu``, wrapped by

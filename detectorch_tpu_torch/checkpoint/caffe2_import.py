@@ -27,8 +27,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from detectorch_tpu.config import ModelConfig
 from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+from detectorch_tpu_torch.config import ModelConfig
 from detectorch_tpu_torch.models import resnet as resnet_mod
 
 

@@ -1,1 +1,2 @@
-"""Input data: roidb targets (numpy, no JAX) and on-device preprocessing."""
+"""Input data: the COCO dataset and roidb, image transforms, the prefetch
+loader (host, numpy) and on-device preprocessing."""

@@ -27,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from detectorch_tpu.data.transforms import (
+from detectorch_tpu_torch.data.transforms import (
     DEFAULT_BUCKETS,
     PIXEL_MEANS_RGB,
     bucket_shape,

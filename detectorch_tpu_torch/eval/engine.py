@@ -3,7 +3,7 @@
 Port of ``detectorch_tpu/eval/engine.py`` (the reference's eval notebooks
 and ``json_dataset_evaluator.py:40-235``): run the model over a dataset,
 collect COCO results (bbox xywh with the +1 width convention, segm RLE
-strings) and score them with the JAX package's JAX-free COCOeval.
+strings) and score them with the numpy COCOeval (``eval/coco_eval``).
 
   * ``InferenceEngine``: one image at a time; host-blob or
     device-preprocess input; multi-scale inference (``run_image_multiscale``).
@@ -35,18 +35,18 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from detectorch_tpu.config import ModelConfig, TestConfig
-from detectorch_tpu.data import transforms as T
-from detectorch_tpu.data.coco import CocoDataset, RoidbEntry
-from detectorch_tpu.eval import mask_paste
-from detectorch_tpu.eval.coco_eval import COCOeval
 from detectorch_tpu_torch.checkpoint.convert import params_to_device
+from detectorch_tpu_torch.config import ModelConfig, TestConfig
+from detectorch_tpu_torch.data import transforms as T
+from detectorch_tpu_torch.data.coco import CocoDataset, RoidbEntry
 from detectorch_tpu_torch.data.device_input import (
     device_preprocess,
     pack_tables_meta,
     prepare_raw,
 )
+from detectorch_tpu_torch.eval import mask_paste
 from detectorch_tpu_torch.eval import postprocess as pp
+from detectorch_tpu_torch.eval.coco_eval import COCOeval
 from detectorch_tpu_torch.models.detector import make_inference_fn, make_mask_fn
 
 
@@ -421,7 +421,7 @@ def evaluate_dataset(
     if multiscale and batch_size > 1:
         raise ValueError("multi-scale eval runs the single-image engine (batch_size=1)")
 
-    from detectorch_tpu.data.loader import PrefetchLoader
+    from detectorch_tpu_torch.data.loader import PrefetchLoader
 
     if engines is None:
         engines = {}
@@ -540,7 +540,7 @@ def evaluate_dataset(
         if not results:
             return None
         if output_dir is not None:
-            from detectorch_tpu.eval import results_io
+            from detectorch_tpu_torch.eval import results_io
 
             ev = results_io.evaluate_from_results(
                 dataset.coco, results, iou_type, output_dir,
@@ -550,7 +550,7 @@ def evaluate_dataset(
         ev.evaluate()
         ev.accumulate()
         if per_class_ap:
-            from detectorch_tpu.eval import results_io
+            from detectorch_tpu_torch.eval import results_io
 
             results_io.log_per_class_ap(ev, verbose=verbose)
         return ev.summarize(verbose=verbose)

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from detectorch_tpu.config import TestConfig
+from detectorch_tpu_torch.config import TestConfig
 from detectorch_tpu_torch.ops import boxes as box_ops
 from detectorch_tpu_torch.ops.nms import batched_nms, batched_soft_nms, topk_stable
 

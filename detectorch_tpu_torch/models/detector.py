@@ -20,7 +20,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from detectorch_tpu.config import ModelConfig, TestConfig
+from detectorch_tpu_torch.config import ModelConfig, TestConfig
 from detectorch_tpu_torch.eval.postprocess import Detections, postprocess_detections
 from detectorch_tpu_torch.models import fpn as fpn_mod
 from detectorch_tpu_torch.models import heads as heads_mod

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from detectorch_tpu.config import BBOX_XFORM_CLIP
+from detectorch_tpu_torch.config import BBOX_XFORM_CLIP
 
 
 def boxes_area(boxes):

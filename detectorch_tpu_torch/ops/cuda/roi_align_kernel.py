@@ -31,6 +31,7 @@ import tempfile
 from pathlib import Path
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from detectorch_tpu_torch.ops import roi_align as plain
@@ -248,6 +249,84 @@ def tile_tables(level_shapes, tile: int = TILE):
     return tiles_x, tiles_per_image, tile_base
 
 
+def scratch_ints(num_rois: int, num_tiles: int, max_tiles_per_image: int) -> int:
+    """int32 scratch of the backward kernel, from shapes alone: per roi its
+    tile range (4), per tile a count and a first slot (plus the total), and
+    room for every roi in every tile of one image of its level."""
+    return 4 * num_rois + 2 * num_tiles + 1 + num_rois * max_tiles_per_image
+
+
+def _sample_coord(start, bin_size, grid, p, i):
+    """The kernels' sample_coord, in float32 step by step."""
+    f = np.float32
+    return f(f(start + f(f(p) * bin_size)) + f(f(f(i) + f(0.5)) * bin_size) / f(grid))
+
+
+def tile_span(start, bin_size, grid, pooled, size, tile: int = TILE):
+    """The backward kernel's tile_span: tiles [lo, hi] along one axis that a
+    roi's taps can reach (one pixel of slack on each side)."""
+    top = np.float32(size - 1)
+    first = min(max(_sample_coord(start, bin_size, grid, 0, 0), 0), top)
+    last = min(max(_sample_coord(start, bin_size, grid, pooled - 1, grid - 1), 0), top)
+    lo = max(int(np.floor(first)) - 1, 0)
+    hi = min(int(np.floor(last)) + 2, size - 1)
+    return lo // tile, hi // tile
+
+
+def roi_geometry_f32(box, scale, pooled_h, pooled_w, sampling_ratio=2, max_grid=8):
+    """The kernels' roi_geometry in float32 step by step: (start_h, start_w,
+    bin_h, bin_w, grid_h, grid_w)."""
+    f = np.float32
+    s = f(scale)
+    x1, y1, x2, y2 = (f(v) for v in box)
+    start_w, start_h = f(x1 * s), f(y1 * s)
+    bin_w = f(max(f(f(x2 * s) - start_w), f(1)) / f(pooled_w))
+    bin_h = f(max(f(f(y2 * s) - start_h), f(1)) / f(pooled_h))
+    grid_h = grid_w = sampling_ratio
+    if sampling_ratio <= 0:
+        grid_h = int(min(max(np.ceil(bin_h), 1), max_grid))
+        grid_w = int(min(max(np.ceil(bin_w), 1), max_grid))
+    return start_h, start_w, bin_h, bin_w, grid_h, grid_w
+
+
+def roi_tile_lists(feature_shapes, rois, batch_idx, levels, level_scales, pooled_h, pooled_w,
+                   sampling_ratio=2, max_grid=8):
+    """The backward kernel's per-tile roi lists, built on the CPU as its
+    kernels build them: per roi the tile range of its level and image (none
+    for a level or image out of range), a count per tile, an exclusive scan
+    into first slots, and a fill in ascending roi order — the order that the
+    kernel's sort restores. Returns (starts, lists) as numpy int64: tile t's
+    rois are lists[starts[t]:starts[t + 1]]."""
+    shapes = [tuple(int(d) for d in s[:3]) for s in feature_shapes]
+    tiles_x, tiles_per_image, tile_base = tile_tables(shapes)
+    rois = np.asarray(torch.as_tensor(rois, dtype=torch.float32).cpu())
+    batch_idx = np.asarray(torch.as_tensor(batch_idx).cpu())
+    levels = np.asarray(torch.as_tensor(levels).cpu())
+    tiles_of = []
+    for r in range(len(rois)):
+        lvl, b = int(levels[r]), int(batch_idx[r])
+        if not (0 <= lvl < len(shapes) and 0 <= b < shapes[0][0]):
+            tiles_of.append([])
+            continue
+        sh, sw, bh, bw, gh, gw = roi_geometry_f32(rois[r], level_scales[lvl], pooled_h,
+                                                  pooled_w, sampling_ratio, max_grid)
+        ty0, ty1 = tile_span(sh, bh, gh, pooled_h, shapes[lvl][1])
+        tx0, tx1 = tile_span(sw, bw, gw, pooled_w, shapes[lvl][2])
+        first = tile_base[lvl] + b * tiles_per_image[lvl]
+        tiles_of.append([first + ty * tiles_x[lvl] + tx
+                         for ty in range(ty0, ty1 + 1) for tx in range(tx0, tx1 + 1)])
+    counts = np.zeros(tile_base[-1], np.int64)
+    for tiles in tiles_of:
+        counts[tiles] += 1
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    lists = np.zeros(starts[-1], np.int64)
+    cursor = starts[:-1].copy()
+    for r, tiles in enumerate(tiles_of):
+        lists[cursor[tiles]] = r
+        cursor[tiles] += 1
+    return starts, lists
+
+
 class RoIAlignBackward(_Kernel):
     """The backward kernel's wrapper: the feature gradient of RoIAlign."""
 
@@ -260,8 +339,8 @@ class RoIAlignBackward(_Kernel):
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
 
     def __call__(
@@ -315,8 +394,9 @@ class RoIAlignBackward(_Kernel):
             raise ValueError("sampling_ratio must be > 0, or 0 with max_grid >= 1")
 
         outs = [torch.empty(s, dtype=out_dtype, device=g.device) for s in shapes]
-        ranges = torch.empty((max(r, 1), 4), dtype=torch.int32, device=g.device)
         tiles_x, tiles_per_image, tile_base = tile_tables([s[:3] for s in shapes])
+        scratch = torch.empty(scratch_ints(r, tile_base[-1], max(tiles_per_image)),
+                              dtype=torch.int32, device=g.device)
         ptrs = (ctypes.c_void_p * n_lvl)(*[o.data_ptr() for o in outs])
         scales = (ctypes.c_float * n_lvl)(*[float(s) for s in level_scales])
         self._call(
@@ -324,8 +404,8 @@ class RoIAlignBackward(_Kernel):
             _int_array([s[1] for s in shapes]), _int_array([s[2] for s in shapes]), scales,
             _int_array(tiles_x), _int_array(tiles_per_image), _int_array(tile_base), num_images,
             g.data_ptr(), rois.data_ptr(), batch_idx.data_ptr(), levels.data_ptr(), r,
-            ranges.data_ptr(), channels, pooled_h, pooled_w, sampling_ratio, max_grid,
-            torch.cuda.current_stream(g.device).cuda_stream,
+            scratch.data_ptr(), scratch.numel(), channels, pooled_h, pooled_w, sampling_ratio,
+            max_grid, torch.cuda.current_stream(g.device).cuda_stream,
         )
         return outs
 

@@ -71,8 +71,8 @@ def load_params(args, cfg):
 
 def main(argv=None):
     args = parse_args(argv)
-    from detectorch_tpu.config import PRESETS, TestConfig
-    from detectorch_tpu.data.coco import CocoDataset
+    from detectorch_tpu_torch.config import PRESETS, TestConfig
+    from detectorch_tpu_torch.data.coco import CocoDataset
     from detectorch_tpu_torch.eval.engine import evaluate_dataset
 
     cfg = PRESETS[args.preset]

@@ -5,9 +5,9 @@ Detectron 2x schedule (SGD momentum 0.9, wd 1e-4, step-decay LR with
 linear warmup, grad clip 35, conv1 + res2 frozen) from precomputed
 proposals, with the same argument names and defaults for the options it
 keeps, ``ckpt-<step>`` checkpoints under --out and ``--resume``. The roidb
-comes from ``data.roidb`` (no JAX); images are read and resized by
-``detectorch_tpu.data.transforms`` and mask targets rasterised by
-``train.sampler``, both of which use OpenCV (cv2).
+comes from ``data.coco.roidb_for_training``; images are read and resized by
+``data.transforms`` and mask targets rasterised by ``train.sampler``, both
+of which use OpenCV (cv2).
 
   python -m detectorch_tpu_torch.tools.train_fast --fpn \\
       --ann instances_train2014.json --imdir train2014 \\
@@ -90,20 +90,20 @@ def main(argv=None):
     args = parse_args(argv)
     import torch
 
-    from detectorch_tpu.config import PRESETS, SamplerConfig, SolverConfig, TestConfig
-    from detectorch_tpu.data import transforms as T
-    from detectorch_tpu.train.sampler import sample_rois
-    from detectorch_tpu.utils.stats import TrainingStats
     from detectorch_tpu_torch.checkpoint import caffe2_import as c2
     from detectorch_tpu_torch.checkpoint import store
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
-    from detectorch_tpu_torch.data.roidb import roidb_for_training
+    from detectorch_tpu_torch.config import PRESETS, SamplerConfig, SolverConfig, TestConfig
+    from detectorch_tpu_torch.data import transforms as T
+    from detectorch_tpu_torch.data.coco import roidb_for_training
     from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.train.sampler import sample_rois
     from detectorch_tpu_torch.train.train_step import (
         load_state_dict,
         make_train_step,
         state_dict,
     )
+    from detectorch_tpu_torch.utils.stats import TrainingStats
 
     device = torch.device(args.device)
     preset = "e2e_mask_rcnn_R-50-FPN_2x" if args.masks else "fast_rcnn_R-50-FPN_2x"

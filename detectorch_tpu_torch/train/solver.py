@@ -18,7 +18,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from detectorch_tpu.config import SolverConfig
+from detectorch_tpu_torch.config import SolverConfig
 
 
 def get_lr_at_iter(it: int, cfg: SolverConfig = SolverConfig()) -> float:

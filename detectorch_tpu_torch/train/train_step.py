@@ -24,7 +24,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from detectorch_tpu.config import ModelConfig, SolverConfig
+from detectorch_tpu_torch.config import ModelConfig, SolverConfig
 from detectorch_tpu_torch.models import fpn as fpn_mod
 from detectorch_tpu_torch.models import heads as heads_mod
 from detectorch_tpu_torch.models import resnet as resnet_mod

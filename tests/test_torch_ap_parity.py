@@ -10,11 +10,16 @@ shares, are built once per run in a directory of the test session's own;
 keeping the tests in one file keeps that build to one worker.
 """
 
+import dataclasses
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from detectorch_tpu_torch import config as torch_config
 from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+from detectorch_tpu_torch.data.coco import CocoDataset
 from detectorch_tpu_torch.eval.engine import evaluate_dataset
 from tests.ap_harness import (
     family_of,
@@ -45,16 +50,34 @@ def synth(tmp_path_factory):
     return (*prepare_dataset(root=root), root)
 
 
+def _port_configs(preset, **tcfg_overrides):
+    """The harness's configuration (tests/ap_harness.harness_cfg, FPN presets)
+    built from the port's own PRESETS and dataclasses."""
+    c = torch_config
+    cfg = c.PRESETS[preset].replace(compute_dtype="float32", roi_align_precision="highest",
+                                    rpn=c.RPNConfig(pre_nms_top_n=300, post_nms_top_n=100))
+    tcfg = c.TestConfig(target_size=256, max_size=320, exact_blob_dims=True, max_proposals=256,
+                        **tcfg_overrides)
+    return cfg, tcfg
+
+
 def _parity(preset, synth, **tcfg_overrides):
     dataset, proposals_file, root = synth
     cfg, tcfg = harness_cfg(preset)
     tcfg = tcfg.replace(**tcfg_overrides)
+    pcfg, ptcfg = _port_configs(preset, **tcfg_overrides)
+    assert dataclasses.asdict(pcfg) == dataclasses.asdict(cfg)
+    assert dataclasses.asdict(ptcfg) == dataclasses.asdict(tcfg)
     params = make_probe_weights(family_of(preset), dataset, cache_root=root)
+    # the port reads the set through its own CocoDataset
+    pdataset = CocoDataset(os.path.join(root, "instances_synth.json"), dataset.image_directory)
+    roidb = (pdataset.get_roidb(gt=False) if cfg.use_rpn
+             else pdataset.get_roidb(gt=False, proposal_file=proposals_file))
+    ours_bbox, ours_segm, info = evaluate_dataset(
+        pcfg, ptcfg, params_from_jax(params), pdataset, roidb=roidb, verbose=False,
+        device="cpu")
     roidb = (dataset.get_roidb(gt=False) if cfg.use_rpn
              else dataset.get_roidb(gt=False, proposal_file=proposals_file))
-    ours_bbox, ours_segm, info = evaluate_dataset(
-        cfg, tcfg, params_from_jax(params), dataset, roidb=roidb, verbose=False,
-        device="cpu")
     mir_bbox, mir_segm, _ = mirror_evaluate(cfg, tcfg, params, dataset, roidb)
     assert ours_bbox is not None and mir_bbox is not None
     assert ours_bbox[0] > 0.05, f"degenerate box AP {ours_bbox[0]}"

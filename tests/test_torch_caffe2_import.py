@@ -20,6 +20,7 @@ from detectorch_tpu.models import resnet as jresnet
 from detectorch_tpu.models.detector import init_params as jax_init_params
 from detectorch_tpu_torch.checkpoint import caffe2_import as c2
 from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+from tests.torch_configs import both_configs
 
 
 def _perturbed_jax_params(cfg, seed):
@@ -43,6 +44,7 @@ def _assert_equal(got, exp):
 
 
 MASK_PRESET = "e2e_mask_rcnn_R-50-FPN_2x"
+_, PCFG = both_configs(lambda c: c.PRESETS[MASK_PRESET])  # the port's, for the port's loader
 
 
 @pytest.fixture(scope="module")
@@ -59,10 +61,10 @@ def jax_pkl(tmp_path_factory):
 
 @pytest.mark.parametrize("folded", [True, False], ids=["folded", "unfolded"])
 def test_jax_pkl_loads_bit_for_bit(folded, jax_pkl):
-    cfg, _, path, jimported = jax_pkl
+    _, _, path, jimported = jax_pkl
     blobs = c2.load_caffe2_pkl(path)
     assert blobs["conv1_w"].shape == (64, 3, 7, 7)  # caffe2's OIHW
-    got, exp = c2.import_params(blobs, cfg), jimported
+    got, exp = c2.import_params(blobs, PCFG), jimported
     if folded:
         got, exp = c2.fold_bn(got), jc2.fold_bn(exp)
     _assert_equal(got, params_from_jax(exp))
@@ -72,14 +74,14 @@ def test_port_round_trip(jax_pkl, tmp_path):
     cfg, jparams, _, _ = jax_pkl
     params = params_from_jax(jparams)
     path = str(tmp_path / "rt.pkl")
-    c2.save_caffe2_pkl(params, cfg, path)
+    c2.save_caffe2_pkl(params, PCFG, path)
     # the port writes what the JAX package writes
     jax_blobs = jc2.export_to_caffe2_layout(jparams, cfg)
     blobs = c2.load_caffe2_pkl(path)
     assert set(blobs) == set(jax_blobs)
     for k in jax_blobs:
         assert np.array_equal(blobs[k], jax_blobs[k]), k
-    _assert_equal(c2.import_params(blobs, cfg), params)
+    _assert_equal(c2.import_params(blobs, PCFG), params)
 
 
 def test_import_base_cnn_matches_jax():
@@ -101,13 +103,13 @@ def test_missing_blob_strict_and_momentum(jax_pkl, tmp_path):
         pickle.dump({"blobs": {"cls_score_w": w, "cls_score_w_momentum": 0 * w}}, f, protocol=2)
     assert set(c2.load_caffe2_pkl(snap)) == {"cls_score_w"}
 
-    cfg, _, path, _ = jax_pkl
+    _, _, path, _ = jax_pkl
     loaded = c2.load_caffe2_pkl(path)
     del loaded["cls_score_w"]
     with pytest.raises(KeyError):
-        c2.import_params(loaded, cfg)
-    lenient = c2.import_params(loaded, cfg, strict=False)
+        c2.import_params(loaded, PCFG)
+    lenient = c2.import_params(loaded, PCFG, strict=False)
     assert lenient["cls_score_w"].shape == (81, 1024)
     loaded["bbox_pred_w"] = loaded["bbox_pred_w"][:10]
     with pytest.raises(ValueError):
-        c2.import_params(loaded, cfg, strict=False)
+        c2.import_params(loaded, PCFG, strict=False)

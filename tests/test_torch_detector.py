@@ -22,21 +22,23 @@ import numpy as np
 import pytest
 import torch
 
-from detectorch_tpu.config import PRESETS, RPNConfig, TestConfig
 from detectorch_tpu.eval import postprocess as jpost
 from detectorch_tpu.models import detector as jdet
 from detectorch_tpu.models import fpn as jfpn
 from detectorch_tpu.models import resnet as jresnet
 from detectorch_tpu_torch.checkpoint.convert import params_from_jax
 from detectorch_tpu_torch.eval import postprocess as tpost
+from detectorch_tpu_torch.config import PRESETS
 from detectorch_tpu_torch.models import detector as tdet
+from tests.torch_configs import both_configs
 
-CFG = PRESETS["e2e_mask_rcnn_R-50-FPN_2x"].replace(
+# JAX's configuration and the port's (P...), each from its own package
+CFG, PCFG = both_configs(lambda c: c.PRESETS["e2e_mask_rcnn_R-50-FPN_2x"].replace(
     compute_dtype="float32",
-    rpn=RPNConfig(pre_nms_top_n=300, post_nms_top_n=64),
+    rpn=c.RPNConfig(pre_nms_top_n=300, post_nms_top_n=64),
     use_pallas_roi_align=False,
-)
-TCFG = TestConfig(detections_per_img=16, score_thresh=0.0)
+))
+TCFG, PTCFG = both_configs(lambda c: c.TestConfig(detections_per_img=16, score_thresh=0.0))
 ROI_ATOL, ATOL = 2e-3, 1e-5
 
 
@@ -49,14 +51,14 @@ def run():
     """Inputs, both packages' params, the port's batched outputs and JAX's
     per-image outputs."""
     jp = jdet.init_params(CFG, seed=123)
-    tp = params_from_jax(tdet.init_params(CFG, seed=123))
+    tp = params_from_jax(tdet.init_params(PCFG, seed=123))
     rng = np.random.RandomState(5)
     images = (rng.randn(2, 96, 128, 3) * 12).astype(np.float32)
     scale = np.array([1.2, 1.1], np.float32)
     orig_h = np.array([80.0, 70.0], np.float32)
     orig_w = np.array([106.0, 110.0], np.float32)
     inputs = (images, scale, orig_h, orig_w)
-    out = tdet.make_inference_fn(CFG, TCFG)(tp, *map(_t, inputs))
+    out = tdet.make_inference_fn(PCFG, PTCFG)(tp, *map(_t, inputs))
     jfwd = jax.jit(jdet.make_inference_fn(CFG, TCFG))
     jout = [jfwd(jp, images[b], jnp.float32(scale[b]), jnp.float32(orig_h[b]),
                  jnp.float32(orig_w[b])) for b in range(2)]
@@ -92,11 +94,11 @@ def test_whole_path_matches_jax(run):
 
 def test_proposals_from_jax_pyramid_select_exactly(run):
     (images, scale, orig_h, orig_w), jp, tp, _, jout = run
-    im_h, im_w = tdet.blob_bounds(CFG, images.shape[1:3], _t(scale), _t(orig_h), _t(orig_w))
+    im_h, im_w = tdet.blob_bounds(PCFG, images.shape[1:3], _t(scale), _t(orig_h), _t(orig_w))
     pyramids = [jfpn.fpn_neck(jp, jresnet.multilevel_body(jp, jnp.asarray(images[b:b + 1])))
                 for b in range(2)]
     pyramid = [_t(np.concatenate([np.asarray(p[lvl]) for p in pyramids])) for lvl in range(4)]
-    props = tdet._fpn_level_proposals(tp, CFG, pyramid, im_h, im_w, _t(scale))
+    props = tdet._fpn_level_proposals(tp, PCFG, pyramid, im_h, im_w, _t(scale))
     for b, jo in enumerate(jout):
         np.testing.assert_array_equal(props.valid[b].numpy(), jo.roi_valid)
         np.testing.assert_allclose(props.boxes[b].numpy(), jo.rois, rtol=0, atol=1e-4)
@@ -106,7 +108,7 @@ def test_blob_bounds_match_jax():
     scale = np.array([1.2, 1.66, 0.5], np.float32)
     orig_h = np.array([80.0, 500.0, 33.0], np.float32)
     orig_w = np.array([106.0, 800.0, 47.0], np.float32)
-    im_h, im_w = tdet.blob_bounds(CFG, (832, 1344), _t(scale), _t(orig_h), _t(orig_w))
+    im_h, im_w = tdet.blob_bounds(PCFG, (832, 1344), _t(scale), _t(orig_h), _t(orig_w))
     # JAX's make_inference_fn computes them inline (detector.py:176-181)
     exp_h = np.minimum(np.ceil(np.minimum(np.round(orig_h * scale), 832) / 32) * 32, 832)
     exp_w = np.minimum(np.ceil(np.minimum(np.round(orig_w * scale), 1344) / 32) * 32, 1344)
@@ -120,7 +122,7 @@ def test_box_branch_on_jax_rois(run):
         feats = tdet.resnet_mod.multilevel_body(tp, _t(images))
         pyramid = tdet.fpn_mod.fpn_neck(tp, feats)
         cls, deltas, _ = tdet.box_branch(
-            tp, CFG, TCFG, pyramid, _t(np.stack([j.rois for j in jout])),
+            tp, PCFG, PTCFG, pyramid, _t(np.stack([j.rois for j in jout])),
             _t(np.stack([j.roi_valid for j in jout])), _t(scale), _t(orig_h), _t(orig_w))
     for b, jo in enumerate(jout):
         np.testing.assert_allclose(cls[b].numpy(), jo.cls_scores, rtol=0, atol=ATOL)
@@ -132,7 +134,7 @@ def test_postprocess_on_jax_scores_selects_exactly(run):
     d = tpost.postprocess_detections(
         *(_t(np.stack([getattr(j, f) for j in jout]))
           for f in ("cls_scores", "bbox_deltas", "rois", "roi_valid")),
-        _t(scale), _t(orig_h), _t(orig_w), TCFG, CFG.num_classes)
+        _t(scale), _t(orig_h), _t(orig_w), PTCFG, PCFG.num_classes)
     for b, jo in enumerate(jout):
         jd = jo.detections
         np.testing.assert_array_equal(d.valid[b].numpy(), jd.valid)
@@ -147,7 +149,7 @@ def test_mask_branch_on_jax_detections(run):
         feats = tdet.resnet_mod.multilevel_body(tp, _t(images))
         pyramid = tdet.fpn_mod.fpn_neck(tp, feats)
         masks = tdet.mask_branch(
-            tp, CFG, pyramid, _t(np.stack([j.detections.boxes for j in jout])),
+            tp, PCFG, pyramid, _t(np.stack([j.detections.boxes for j in jout])),
             _t(np.stack([j.detections.classes for j in jout])).long(), _t(scale))
     for b, jo in enumerate(jout):
         np.testing.assert_allclose(masks[b].numpy(), jo.masks, rtol=0, atol=ATOL)
@@ -158,8 +160,9 @@ def test_postprocess_ties_and_prefilter_match_jax(rng, prefilter):
     # quantised scores tie at the global cap and within classes; with the
     # prefilter, some classes exceed it and nms_exact goes False
     b, n, c = 2, 64, 6
-    tcfg = TestConfig(detections_per_img=10, detections_tie_slack=8, score_thresh=0.05,
-                      nms_topk_prefilter=prefilter)
+    tcfg, ptcfg = both_configs(lambda c: c.TestConfig(
+        detections_per_img=10, detections_tie_slack=8, score_thresh=0.05,
+        nms_topk_prefilter=prefilter))
     x1 = rng.uniform(0, 300, (b, n))
     y1 = rng.uniform(0, 200, (b, n))
     rois = np.stack([x1, y1, x1 + rng.uniform(5, 80, (b, n)),
@@ -172,7 +175,7 @@ def test_postprocess_ties_and_prefilter_match_jax(rng, prefilter):
     oh = np.array([200.0, 250.0], np.float32)
     ow = np.array([260.0, 330.0], np.float32)
     d = tpost.postprocess_detections(_t(scores), _t(deltas), _t(rois), _t(valid), _t(scale),
-                                     _t(oh), _t(ow), tcfg, c)
+                                     _t(oh), _t(ow), ptcfg, c)
     for i in range(b):
         jd = jpost.postprocess_detections(
             jnp.asarray(scores[i]), jnp.asarray(deltas[i]), jnp.asarray(rois[i]),
@@ -190,7 +193,7 @@ def test_mask_fn_on_jax_detections(run):
     """make_mask_fn recomputes the backbone and runs the mask branch on given
     boxes: on JAX's final detections it equals JAX's make_mask_fn."""
     (images, scale, orig_h, orig_w), jp, tp, _, jout = run
-    masks = tdet.make_mask_fn(CFG)(
+    masks = tdet.make_mask_fn(PCFG)(
         tp, *map(_t, (images, scale, orig_h, orig_w)),
         _t(np.stack([j.detections.boxes for j in jout])),
         _t(np.stack([j.detections.classes for j in jout])))
@@ -207,10 +210,10 @@ def test_mask_fn_on_jax_detections(run):
 def test_fast_rcnn_fpn_matches_jax(rng):
     """Fast R-CNN FPN inference from given proposals: the same rois, and the
     box branch's scores and deltas within ATOL of JAX's per-image program."""
-    cfg = PRESETS["fast_rcnn_R-50-FPN_2x"].replace(compute_dtype="float32",
-                                                   use_pallas_roi_align=False)
+    cfg, pcfg = both_configs(lambda c: c.PRESETS["fast_rcnn_R-50-FPN_2x"].replace(
+        compute_dtype="float32", use_pallas_roi_align=False))
     jp = jdet.init_params(cfg, seed=9)
-    tp = params_from_jax(tdet.init_params(cfg, seed=9))
+    tp = params_from_jax(tdet.init_params(pcfg, seed=9))
     images = (rng.randn(2, 96, 128, 3) * 12).astype(np.float32)
     scale = np.array([1.2, 1.1], np.float32)
     orig_h = np.array([80.0, 70.0], np.float32)
@@ -221,8 +224,8 @@ def test_fast_rcnn_fpn_matches_jax(rng):
                       y1 + rng.uniform(4, 40, (2, 32))], -1).astype(np.float32)
     valid = np.ones((2, 32), bool)
     valid[1, 20:] = False
-    out = tdet.make_inference_fn(cfg, TCFG)(tp, *map(_t, (images, scale, orig_h, orig_w)),
-                                            _t(props), _t(valid))
+    out = tdet.make_inference_fn(pcfg, PTCFG)(tp, *map(_t, (images, scale, orig_h, orig_w)),
+                                              _t(props), _t(valid))
     jfwd = jax.jit(jdet.make_inference_fn(cfg, TCFG))
     for b in range(2):
         jo = jfwd(jp, images[b], jnp.float32(scale[b]), jnp.float32(orig_h[b]),
@@ -239,15 +242,15 @@ def test_fast_rcnn_fpn_matches_jax(rng):
                                    np.sort(np.asarray(jd.scores)[np.asarray(jd.valid)]),
                                    rtol=0, atol=ATOL)
     # without a validity mask every proposal is valid
-    all_valid = tdet.make_inference_fn(cfg, TCFG)(tp, *map(_t, (images, scale, orig_h, orig_w)),
-                                                  _t(props))
+    all_valid = tdet.make_inference_fn(pcfg, PTCFG)(
+        tp, *map(_t, (images, scale, orig_h, orig_w)), _t(props))
     assert all_valid.roi_valid.all()
     with pytest.raises(ValueError):
-        tdet.make_inference_fn(cfg, TCFG)(tp, *map(_t, (images, scale, orig_h, orig_w)))
+        tdet.make_inference_fn(pcfg, PTCFG)(tp, *map(_t, (images, scale, orig_h, orig_w)))
 
 
 @pytest.mark.parametrize("preset", ["e2e_mask_rcnn_R-50-C4_2x", "fast_rcnn_R-50-C4_2x",
                                     "e2e_keypoint_rcnn_R-50-FPN_1x"])
 def test_unported_branches_raise(preset):
     with pytest.raises(NotImplementedError):
-        tdet.make_inference_fn(PRESETS[preset], TCFG)
+        tdet.make_inference_fn(PRESETS[preset], PTCFG)

@@ -19,19 +19,28 @@ import numpy as np
 import pytest
 import torch
 
-from detectorch_tpu.config import PRESETS, RPNConfig, TestConfig
-from detectorch_tpu.data.coco import CocoDataset
-from detectorch_tpu.data.transforms import load_image_rgb
 from detectorch_tpu.eval import engine as jengine
-from detectorch_tpu.eval import rle as rle_mod
 from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+from detectorch_tpu_torch.config import PRESETS, RPNConfig
+from detectorch_tpu_torch.data.coco import CocoDataset
+from detectorch_tpu_torch.data.transforms import load_image_rgb
 from detectorch_tpu_torch.eval import engine as E
+from detectorch_tpu_torch.eval import rle as rle_mod
 from detectorch_tpu_torch.models.detector import init_params
+from tests.torch_configs import both_configs
 
 H, W = 64, 96
 RPN = RPNConfig(pre_nms_top_n=100, post_nms_top_n=20)
-TCFG = TestConfig(target_size=64, max_size=96, detections_per_img=5, score_thresh=0.0,
-                  exact_blob_dims=True)  # blobs of 64x96, not the 832x1344 bucket
+
+
+def _test_cfg(c):
+    """The TestConfig of config module `c`: blobs of 64x96, not the
+    832x1344 bucket."""
+    return c.TestConfig(target_size=64, max_size=96, detections_per_img=5, score_thresh=0.0,
+                        exact_blob_dims=True)
+
+
+JAX_TCFG, TCFG = both_configs(_test_cfg)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -268,7 +277,10 @@ def test_multiscale_merge_matches_jax(tiny, faster_params):
     got = eng._merge_fn(2)(*([getattr(o, f) for o in outs] for f in fields),
                            torch.tensor(scales), torch.tensor([float(oh)]),
                            torch.tensor([float(ow)]))
-    jeng = jengine.InferenceEngine(cfg, TCFG, {})
+    jcfg, pcfg = both_configs(lambda c: c.PRESETS["e2e_faster_rcnn_R-50-FPN_2x"].replace(
+        compute_dtype="float32", rpn=c.RPNConfig(pre_nms_top_n=100, post_nms_top_n=20)))
+    assert pcfg == cfg
+    jeng = jengine.InferenceEngine(jcfg, JAX_TCFG, {})
     exp = jeng._merge_fn(2)(*([getattr(o, f)[0].numpy() for o in outs] for f in fields),
                             jnp.asarray(scales, jnp.float32), jnp.float32(oh), jnp.float32(ow))
     np.testing.assert_array_equal(got.valid[0].numpy(), np.asarray(exp.valid))

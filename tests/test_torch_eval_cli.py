@@ -15,12 +15,12 @@ import numpy as np
 import pytest
 
 from detectorch_tpu.checkpoint import caffe2_import as jc2
-from detectorch_tpu.config import PRESETS
 from detectorch_tpu.models.detector import init_params
 from detectorch_tpu_torch.checkpoint import store
 from detectorch_tpu_torch.checkpoint.convert import params_from_jax
 from detectorch_tpu_torch.tools import eval_coco
 from detectorch_tpu_torch.train.train_step import make_train_step, state_dict
+from tests.torch_configs import both_configs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESET = "e2e_mask_rcnn_R-50-FPN_2x"
@@ -32,7 +32,7 @@ def setup(tmp_path_factory):
 
     root = tmp_path_factory.mktemp("evalcli")
     ann, imdir = build_synth_coco(str(root / "ds"), n_images=2, height=96, width=128, seed=3)
-    cfg = PRESETS[PRESET]
+    cfg, pcfg = both_configs(lambda c: c.PRESETS[PRESET])
     params = {k: np.asarray(v) for k, v in init_params(cfg, seed=0).items()}
     # random weights score every class near 1/81, under the 0.05 threshold:
     # make two classes confident so that detections (and masks) come out
@@ -41,7 +41,7 @@ def setup(tmp_path_factory):
     params["cls_score_b"] = b
     pkl = str(root / "model.pkl")
     jc2.save_caffe2_pkl(params, cfg, pkl)
-    init_state, _ = make_train_step(cfg)
+    init_state, _ = make_train_step(pcfg)
     state, _ = init_state(params_from_jax(params))
     run = str(root / "run")
     store.save_checkpoint(run, 5, state_dict(state))

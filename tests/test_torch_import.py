@@ -1,8 +1,9 @@
-"""The port stands without JAX, and chip_smoke.py refuses to run without a card.
+"""The port stands alone, and chip_smoke.py refuses to run without a card.
 
-The machine with the card has no JAX, so importing the port must not pull
-it in. conftest.py has already imported JAX into this process, so the
-check runs in a fresh interpreter.
+The machine with the card has neither JAX nor the JAX package, so importing
+or running the port must pull in neither: not ``jax``, and no module of
+``detectorch_tpu``. conftest.py has already imported both into this
+process, so the checks run in a fresh interpreter.
 """
 
 import os
@@ -22,6 +23,15 @@ def _python(args, cwd, timeout=300, env=None):
                           timeout=timeout, env=env)
 
 
+# printed and checked by every fresh-interpreter run below
+LEAK_CHECK = """
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "detectorch_tpu"))
+print("LEAKED", leaked)
+sys.exit(1 if leaked else 0)
+"""
+
+
 def _port_modules():
     return ["detectorch_tpu_torch"] + [
         m.name for m in pkgutil.walk_packages(detectorch_tpu_torch.__path__,
@@ -36,25 +46,20 @@ def test_port_imports_without_jax():
     assert "detectorch_tpu_torch.eval.engine" in mods
     assert "detectorch_tpu_torch.tools.eval_coco" in mods
     code = ("import importlib, sys\n"
-            f"for m in {mods!r}: importlib.import_module(m)\n"
-            "leaked = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
-            "print('LEAKED', leaked)\n"
-            "sys.exit(1 if leaked else 0)\n")
+            f"for m in {mods!r}: importlib.import_module(m)\n" + LEAK_CHECK)
     proc = _python(["-c", code], cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_training_data_path_runs_without_jax():
-    # roidb entries built in memory, the port's bbox targets, then the JAX
-    # package's sampler: with bbox_targets set, sample_rois never reaches
-    # its own JAX-importing branch
+    # roidb entries built in memory, the port's bbox targets and sampler,
+    # once with the targets set and once computing them itself
     code = """
-import sys
+import copy, sys
 import numpy as np
-from detectorch_tpu.config import SamplerConfig
-from detectorch_tpu.data.coco import RoidbEntry
-from detectorch_tpu.train.sampler import sample_rois
-from detectorch_tpu_torch.data.roidb import add_bbox_regression_targets
+from detectorch_tpu_torch.config import SamplerConfig
+from detectorch_tpu_torch.data.coco import RoidbEntry, add_bbox_regression_targets
+from detectorch_tpu_torch.train.sampler import sample_rois
 
 rng = np.random.RandomState(0)
 gt = np.array([[10, 10, 60, 60], [70, 30, 120, 100]], np.float32)
@@ -71,14 +76,13 @@ entry = RoidbEntry(
     is_crowd=np.zeros(len(boxes), np.uint8), max_overlaps=ov.max(1),
     max_classes=ov.argmax(1).astype(np.int32),
     box_to_gt_ind_map=np.array([0, 1] + [0] * 8 + [-1] * 30, np.int32))
+bare = copy.deepcopy(entry)
 add_bbox_regression_targets([entry])
 assert entry.bbox_targets.shape == (len(boxes), 5) and entry.bbox_targets[2:10, 0].all()
-blobs = sample_rois(entry, 1.5, rng, SamplerConfig(rois_per_image=16))
-assert blobs["valid"].sum() > 0 and blobs["bbox_inside_weights"].sum() > 0
-leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print("LEAKED", leaked)
-sys.exit(1 if leaked else 0)
-"""
+for e in (entry, bare):
+    blobs = sample_rois(e, 1.5, np.random.RandomState(1), SamplerConfig(rois_per_image=16))
+    assert blobs["valid"].sum() > 0 and blobs["bbox_inside_weights"].sum() > 0
+""" + LEAK_CHECK
     proc = _python(["-c", code], cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
@@ -90,9 +94,9 @@ def test_eval_path_runs_without_jax(tmp_path):
     code = """
 import json, os, sys
 import numpy as np
-from detectorch_tpu.config import PRESETS, RPNConfig, TestConfig
-from detectorch_tpu.data.coco import CocoDataset
-from detectorch_tpu.eval import rle
+from detectorch_tpu_torch.config import PRESETS, RPNConfig, TestConfig
+from detectorch_tpu_torch.data.coco import CocoDataset
+from detectorch_tpu_torch.eval import rle
 from detectorch_tpu_torch.checkpoint import caffe2_import as c2
 from detectorch_tpu_torch.checkpoint.convert import params_from_jax
 from detectorch_tpu_torch.eval.engine import evaluate_dataset
@@ -122,10 +126,7 @@ bbox, segm, info = evaluate_dataset(
     cfg, tcfg, params, CocoDataset(os.path.join(tmp, "ann.json"), tmp), verbose=False,
     batch_size=2, load_image=lambda p: images[os.path.basename(p)], device="cpu")
 assert len(bbox) == len(segm) == 12 and len(info["segm"]) == 12, (bbox, segm)
-leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print("LEAKED", leaked)
-sys.exit(1 if leaked else 0)
-"""
+""" + LEAK_CHECK
     # the Tier-1 command's six workers share the cores: one torch thread
     proc = _python(["-c", code, str(tmp_path)], cwd=REPO,
                    env={**os.environ, "OMP_NUM_THREADS": "1"})
@@ -133,12 +134,16 @@ sys.exit(1 if leaked else 0)
 
 
 def test_no_jax_import_in_port_sources():
-    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    # neither jax nor any module of the JAX package, at any indentation
+    pattern = re.compile(r"^\s*(import|from) (jax|detectorch_tpu)(\.|\s|$)", re.M)
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "detectorch_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     offenders = [p for p in paths if pattern.search(open(p).read())]
     assert not offenders
+    assert pattern.search("    from detectorch_tpu.config import PRESETS\n")
+    assert pattern.search("import detectorch_tpu\n")
+    assert not pattern.search("from detectorch_tpu_torch.config import PRESETS\n")
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

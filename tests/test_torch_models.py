@@ -28,6 +28,7 @@ from detectorch_tpu_torch.models import fpn as tfpn
 from detectorch_tpu_torch.models import heads as theads
 from detectorch_tpu_torch.models import resnet as tresnet
 from detectorch_tpu_torch.models import rpn as trpn
+from tests.torch_configs import both_configs
 
 REL = 1e-4
 PRESET = "e2e_mask_rcnn_R-50-FPN_2x"
@@ -59,9 +60,9 @@ def params():
 
 
 def test_init_params_equal_blob_for_blob():
-    cfg = PRESETS[PRESET]
+    cfg, pcfg = both_configs(lambda c: c.PRESETS[PRESET])
     exp = jdet.init_params(cfg, seed=0)
-    got = tdet.init_params(cfg, seed=0)
+    got = tdet.init_params(pcfg, seed=0)
     assert list(got) == list(exp)
     for name in exp:
         e = np.asarray(exp[name])

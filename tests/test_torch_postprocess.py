@@ -11,13 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from detectorch_tpu.config import TestConfig
 from detectorch_tpu.eval import postprocess as jpost
 from detectorch_tpu.ops import boxes as jboxes
 from detectorch_tpu.ops import nms as jnms
 from detectorch_tpu_torch.eval import postprocess as tpost
 from detectorch_tpu_torch.ops import boxes as tboxes
 from detectorch_tpu_torch.ops import nms as tnms
+from tests.torch_configs import both_configs
 
 ATOL = 1e-5
 
@@ -102,8 +102,8 @@ def test_box_voting_matches_jax(rng, method):
 ])
 def test_postprocess_branches_match_jax(rng, branch):
     b, n, c = 2, 40, 5
-    tcfg = TestConfig(detections_per_img=8, detections_tie_slack=4, score_thresh=0.05,
-                      **branch)
+    tcfg, ptcfg = both_configs(lambda c: c.TestConfig(
+        detections_per_img=8, detections_tie_slack=4, score_thresh=0.05, **branch))
     rois = _clustered_boxes(rng, b, n, extent=90.0)
     logits = rng.randn(b, n, c).astype(np.float32) * 2
     scores = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).astype(np.float32)
@@ -113,7 +113,7 @@ def test_postprocess_branches_match_jax(rng, branch):
     oh = np.array([60.0, 70.0], np.float32)
     ow = np.array([64.0, 72.0], np.float32)
     d = tpost.postprocess_detections(_t(scores), _t(deltas), _t(rois), _t(valid), _t(scale),
-                                     _t(oh), _t(ow), tcfg, c)
+                                     _t(oh), _t(ow), ptcfg, c)
     for i in range(b):
         jd = jpost.postprocess_detections(
             jnp.asarray(scores[i]), jnp.asarray(deltas[i]), jnp.asarray(rois[i]),

@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from detectorch_tpu.config import PRESETS
 from detectorch_tpu.ops.pallas.roi_align_kernel import multilevel_roi_align_pallas
 from detectorch_tpu.ops.roi_align import multilevel_roi_align as jax_roi_align
+from detectorch_tpu_torch import config as torch_config
 from detectorch_tpu_torch.models.detector import make_inference_fn
 from detectorch_tpu_torch.ops.cuda.roi_align_kernel import (
     RoIAlignForward,
@@ -144,6 +144,7 @@ def test_wrapper_never_falls_back_off_cpu(rng):
 def test_precision_other_than_exact_raises(precision):
     with pytest.raises(ValueError, match="roi_align_fwd_precision"):
         check_precision(precision)
-    cfg = PRESETS["e2e_mask_rcnn_R-50-FPN_2x"].replace(roi_align_fwd_precision=precision)
+    cfg = torch_config.PRESETS["e2e_mask_rcnn_R-50-FPN_2x"].replace(
+        roi_align_fwd_precision=precision)
     with pytest.raises(ValueError, match="roi_align_fwd_precision"):
         make_inference_fn(cfg, None)

@@ -23,7 +23,13 @@ import torch
 
 from detectorch_tpu.ops.pallas.roi_align_kernel import multilevel_roi_align_slab_grad, slab_fits
 from detectorch_tpu.ops.roi_align import multilevel_roi_align as jax_roi_align
-from detectorch_tpu_torch.ops.cuda.roi_align_kernel import TILE, roi_align_bwd, tile_tables
+from detectorch_tpu_torch.ops.cuda.roi_align_kernel import (
+    TILE,
+    roi_align_bwd,
+    roi_geometry_f32,
+    roi_tile_lists,
+    tile_tables,
+)
 from detectorch_tpu_torch.ops.roi_align import (
     multilevel_roi_align,
     multilevel_roi_align_backward,
@@ -169,25 +175,16 @@ def _tile_span(start, bin_size, grid, pooled, size):
 
 
 def _emulate_kernel(g, shapes, rois, bidx, levels, pooled, sampling_ratio):
-    """The backward kernels' algorithm on the CPU: per roi its level, image
-    and tile ranges; per tile, the rois whose ranges cover it, in ascending
-    order, each adding Ky[ph, y] * Kx[pw, x] * g[roi, ph, pw]."""
+    """The backward kernels' algorithm on the CPU: the per-tile roi lists of
+    the wrapper's mirror (count, scan, fill, ascending); per tile and listed
+    roi, Ky (with 1/count) and Kx over the tile's rows and columns; each
+    column of bins is folded first, h[y, pw] = sum over ph of Ky[ph, y] *
+    g[roi, ph, pw], then Kx[pw, x] * h[y, pw] is added to pixel (y, x)."""
     f = np.float32
     tiles_x, tiles_per_image, tile_base = tile_tables([s[:3] for s in shapes])
-    geometry, spans = [], []
-    for r, (x1, y1, x2, y2) in enumerate(rois):
-        lvl = levels[r]
-        if not (0 <= lvl < len(shapes) and 0 <= bidx[r] < shapes[0][0]):
-            geometry.append(None)
-            spans.append(None)
-            continue
-        s = f(SCALES[lvl])
-        sw, sh = f(x1 * s), f(y1 * s)
-        bw = f(max(f(f(x2 * s) - sw), f(1)) / f(pooled))
-        bh = f(max(f(f(y2 * s) - sh), f(1)) / f(pooled))
-        geometry.append((sh, sw, bh, bw))
-        spans.append((_tile_span(sh, bh, sampling_ratio, pooled, shapes[lvl][1]),
-                      _tile_span(sw, bw, sampling_ratio, pooled, shapes[lvl][2])))
+    starts, lists = roi_tile_lists(shapes, torch.from_numpy(rois), torch.from_numpy(bidx),
+                                   torch.from_numpy(levels), SCALES, pooled, pooled,
+                                   sampling_ratio)
     outs = [np.zeros(s, np.float32) for s in shapes]
     inv = f(f(1) / f(sampling_ratio * sampling_ratio))
     for t in range(tile_base[-1]):
@@ -196,43 +193,117 @@ def _emulate_kernel(g, shapes, rois, bidx, levels, pooled, sampling_ratio):
         ty, tx = divmod(t_img, tiles_x[lvl])
         height, width = shapes[lvl][1:3]
         acc = np.zeros((TILE, TILE, shapes[0][-1]), np.float32)
-        for r in range(len(rois)):
-            if spans[r] is None or levels[r] != lvl or bidx[r] != b:
-                continue
-            (ty0, ty1), (tx0, tx1) = spans[r]
-            if not (ty0 <= ty <= ty1 and tx0 <= tx <= tx1):
-                continue
-            sh, sw, bh, bw = geometry[r]
-            ky = np.array([[f(_axis_weight(sh, bh, sampling_ratio, p, ty * TILE + y, height)
-                              * inv) for y in range(TILE)] for p in range(pooled)], np.float32)
-            kx = np.array([[_axis_weight(sw, bw, sampling_ratio, p, tx * TILE + x, width)
+        for r in lists[starts[t]:starts[t + 1]]:
+            sh, sw, bh, bw, gh, gw = roi_geometry_f32(rois[r], SCALES[lvl], pooled, pooled,
+                                                      sampling_ratio)
+            ky = np.array([[f(_axis_weight(sh, bh, gh, p, ty * TILE + y, height) * inv)
+                            for y in range(TILE)] for p in range(pooled)], np.float32)
+            kx = np.array([[_axis_weight(sw, bw, gw, p, tx * TILE + x, width)
                             for x in range(TILE)] for p in range(pooled)], np.float32)
-            acc += np.einsum("py,qx,pqc->yxc", ky, kx, g[r])
+            h = np.einsum("py,pqc->yqc", ky, g[r])
+            acc += np.einsum("qx,yqc->yxc", kx, h)
         hh, ww = min(TILE, height - ty * TILE), min(TILE, width - tx * TILE)
         outs[lvl][b, ty * TILE:ty * TILE + hh, tx * TILE:tx * TILE + ww] = acc[:hh, :ww]
     return outs
 
 
+LIST_SHAPES = [(2, 40, 64, 8), (2, 20, 32, 8), (2, 10, 16, 8), (2, 5, 8, 8)]
+
+
 def test_backward_kernel_tiles_and_algorithm(rng):
-    """The kernels' tile ranges and per-tile separable sums, emulated on the
-    CPU, give the plain backward: no tap lies outside the tiles a roi's
-    range lists. With an out-of-range level, an empty level, and R = 0."""
-    scales_shapes = [(2, 40, 64, 8), (2, 20, 32, 8), (2, 10, 16, 8), (2, 5, 8, 8)]
+    """The kernels' tile lists and per-tile separable sums, emulated on the
+    CPU, give the plain backward: no tap lies outside the tiles whose list
+    holds the roi. With an out-of-range level, an empty level, and R = 0."""
     rois, bidx, levels = _rois(rng, 2, 16)
     rois = rois * 0.5  # a 160x256 image for these levels
     levels = np.where(levels == 3, 2, levels).astype(np.int32)  # the coarsest level is empty
     levels[5] = 9  # out of range: no tile lists it, and it adds nothing
     g = rng.randn(len(rois), 7, 7, 8).astype(np.float32)
-    got = _emulate_kernel(g, scales_shapes, rois, bidx, levels, 7, 2)
+    got = _emulate_kernel(g, LIST_SHAPES, rois, bidx, levels, 7, 2)
     keep = levels < 4
     exp = multilevel_roi_align_backward(
-        torch.from_numpy(g[keep]), scales_shapes, torch.from_numpy(rois[keep]),
+        torch.from_numpy(g[keep]), LIST_SHAPES, torch.from_numpy(rois[keep]),
         torch.from_numpy(bidx[keep]), torch.from_numpy(levels[keep]), SCALES, 7, 7, 2)
     assert not got[3].any()
     _assert_close(got, [e.numpy() for e in exp])
 
-    empty = _emulate_kernel(g[:0], scales_shapes, rois[:0], bidx[:0], levels[:0], 7, 2)
+    empty = _emulate_kernel(g[:0], LIST_SHAPES, rois[:0], bidx[:0], levels[:0], 7, 2)
     assert not any(e.any() for e in empty)
+
+
+def _list_case(rng, case):
+    """(rois, bidx, levels) of one list-builder case, for LIST_SHAPES (a
+    160x256 image)."""
+    rois, bidx, levels = _rois(rng, 2, 16)
+    rois = (rois * 0.5).astype(np.float32)
+    if case == "cluster300":
+        # 300 small rois jittered around one spot: one P2 tile lists them all
+        base = np.array([100.0, 60.0, 112.0, 70.0], np.float32)
+        cluster = (base + rng.uniform(-1.5, 1.5, (300, 4))).astype(np.float32)
+        rois = np.concatenate([rois, cluster])
+        bidx = np.concatenate([bidx, np.ones(300, np.int32)])
+        levels = np.concatenate([levels, np.zeros(300, np.int32)])
+    elif case == "out_of_range_level":
+        levels = levels.copy()
+        levels[::3] = 9
+        bidx = bidx.copy()
+        bidx[1] = 5  # an image out of range too
+    elif case == "empty_level":
+        levels = np.where(levels == 3, 2, levels).astype(np.int32)
+    elif case == "no_rois":
+        rois, bidx, levels = rois[:0], bidx[:0], levels[:0]
+    return rois, bidx.astype(np.int32), levels.astype(np.int32)
+
+
+@pytest.mark.parametrize("pooled", [7, 14])
+@pytest.mark.parametrize("case", ["cluster300", "out_of_range_level", "empty_level", "no_rois"])
+def test_tile_roi_lists(rng, case, pooled):
+    """The list builder's mirror: each tile's list holds, in ascending
+    order, exactly the rois whose tile span (computed here independently)
+    covers it, and among them every roi whose plain gradient is non-zero on
+    that tile; rois of a level or image out of range are in no list."""
+    rois, bidx, levels = _list_case(rng, case)
+    starts, lists = roi_tile_lists(LIST_SHAPES, torch.from_numpy(rois), torch.from_numpy(bidx),
+                                   torch.from_numpy(levels), SCALES, pooled, pooled, 2)
+    tiles_x, tiles_per_image, tile_base = tile_tables([s[:3] for s in LIST_SHAPES])
+    assert len(starts) == tile_base[-1] + 1 and starts[0] == 0 and starts[-1] == len(lists)
+    assert np.all(np.diff(starts) >= 0)
+    f = np.float32
+    expected = [[] for _ in range(tile_base[-1])]  # by span, in ascending roi order
+    for r, (x1, y1, x2, y2) in enumerate(rois):
+        lvl, b = int(levels[r]), int(bidx[r])
+        if not (0 <= lvl < len(LIST_SHAPES) and 0 <= b < LIST_SHAPES[0][0]):
+            continue
+        s = f(SCALES[lvl])
+        sw, sh = f(x1 * s), f(y1 * s)
+        bw = f(max(f(f(x2 * s) - sw), f(1)) / f(pooled))
+        bh = f(max(f(f(y2 * s) - sh), f(1)) / f(pooled))
+        ty0, ty1 = _tile_span(sh, bh, 2, pooled, LIST_SHAPES[lvl][1])
+        tx0, tx1 = _tile_span(sw, bw, 2, pooled, LIST_SHAPES[lvl][2])
+        first = tile_base[lvl] + b * tiles_per_image[lvl]
+        for ty in range(ty0, ty1 + 1):
+            for tx in range(tx0, tx1 + 1):
+                expected[first + ty * tiles_x[lvl] + tx].append(r)
+    for t in range(tile_base[-1]):
+        assert list(lists[starts[t]:starts[t + 1]]) == expected[t], t
+    # every roi whose plain gradient touches a tile is in that tile's list
+    keep = (levels >= 0) & (levels < len(LIST_SHAPES)) & (bidx >= 0) & (bidx < 2)
+    for r in np.flatnonzero(keep):
+        grads = multilevel_roi_align_backward(
+            torch.ones((1, pooled, pooled, 8)), LIST_SHAPES, torch.from_numpy(rois[r:r + 1]),
+            torch.from_numpy(bidx[r:r + 1]), torch.from_numpy(levels[r:r + 1]), SCALES,
+            pooled, pooled, 2)
+        lvl = int(levels[r])
+        _, ys, xs = np.nonzero(grads[lvl].numpy().any(axis=-1))
+        first = tile_base[lvl] + int(bidx[r]) * tiles_per_image[lvl]
+        for t in set(first + (ys // TILE) * tiles_x[lvl] + xs // TILE):
+            assert r in lists[starts[t]:starts[t + 1]], (r, t)
+    if case == "cluster300":
+        assert np.diff(starts).max() >= 300
+    if case == "empty_level":
+        assert starts[tile_base[3]] == starts[-1]  # no pair on the coarsest level
+    if case == "no_rois":
+        assert len(lists) == 0
 
 
 def test_fused_gradients_are_the_plain_backward(rng):

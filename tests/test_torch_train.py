@@ -33,14 +33,21 @@ import optax
 import pytest
 import torch
 
-from detectorch_tpu.config import PRESETS, SolverConfig
 from detectorch_tpu.models.detector import init_params
 from detectorch_tpu.train.sampler import expand_bbox_targets
 from detectorch_tpu.train.train_step import make_train_step as jax_make_train_step
 from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+from detectorch_tpu_torch.config import PRESETS
 from detectorch_tpu_torch.train.train_step import box_branch_loss, make_train_step
+from tests.torch_configs import both_configs
 
-SOLVER = SolverConfig(base_lr=0.01, warmup_iters=0)
+# JAX's solver and the port's, each from its own package
+SOLVER, PSOLVER = both_configs(lambda c: c.SolverConfig(base_lr=0.01, warmup_iters=0))
+
+
+def _cfgs(preset, **kw):
+    """(JAX's, the port's) config of `preset` with `kw` replaced."""
+    return both_configs(lambda c: c.PRESETS[preset].replace(**kw))
 FAST, MASK = "fast_rcnn_R-50-FPN_2x", "e2e_mask_rcnn_R-50-FPN_2x"
 B, R, RM = 2, 24, 8
 
@@ -123,7 +130,7 @@ def _run_jax(cfg, params, batch, train_mask, steps):
 
 
 def _port_grads(cfg, params, batch, train_mask):
-    init_state, _ = make_train_step(cfg, SOLVER, train_mask=train_mask,
+    init_state, _ = make_train_step(cfg, PSOLVER, train_mask=train_mask,
                                     roi_align_impl="pallas-slab")
     state, _ = init_state(params_from_jax(params))
     tb = _torch_batch(batch)
@@ -138,7 +145,7 @@ def _port_grads(cfg, params, batch, train_mask):
 
 
 def _run_port(cfg, params, batch, train_mask, steps):
-    init_state, make_step = make_train_step(cfg, SOLVER, train_mask=train_mask,
+    init_state, make_step = make_train_step(cfg, PSOLVER, train_mask=train_mask,
                                             roi_align_impl="pallas-slab")
     state, opt = init_state(params_from_jax(params))
     step = make_step(opt)
@@ -173,12 +180,12 @@ def _compare_leaf(name, got, exp, rel, cos_min, floor=0.0):
 @pytest.fixture(scope="module", params=[(FAST, False), (MASK, True)], ids=["fast", "mask"])
 def fp32_run(request):
     preset, train_mask = request.param
-    cfg = PRESETS[preset].replace(compute_dtype="float32")
+    cfg, pcfg = _cfgs(preset, compute_dtype="float32")
     params = _params(cfg)
     batch = _batch(1, cfg.num_classes, train_mask)
     jax_metrics, jax_grads, jax_params = _run_jax(cfg, params, batch, train_mask, 3)
-    port_metrics, port_params = _run_port(cfg, params, batch, train_mask, 3)
-    _, _, port_grads = _port_grads(cfg, params, batch, train_mask)
+    port_metrics, port_params = _run_port(pcfg, params, batch, train_mask, 3)
+    _, _, port_grads = _port_grads(pcfg, params, batch, train_mask)
     return dict(cfg=cfg, params=params, jax_metrics=jax_metrics, jax_grads=jax_grads,
                 jax_params=jax_params, port_metrics=port_metrics, port_params=port_params,
                 port_grads=port_grads, train_mask=train_mask)
@@ -228,12 +235,12 @@ def test_params_after_three_steps_match_jax(fp32_run):
 
 
 def test_bf16_step_matches_jax_bf16():
-    cfg = PRESETS[FAST]
-    assert cfg.compute_dtype == "bfloat16"
+    cfg, pcfg = _cfgs(FAST)
+    assert cfg.compute_dtype == pcfg.compute_dtype == "bfloat16"
     params = _params(cfg)
     batch = _batch(2, cfg.num_classes, False)
     jax_metrics, jax_grads, _ = _run_jax(cfg, params, batch, False, 1)
-    total, metrics, port_grads = _port_grads(cfg, params, batch, False)
+    total, metrics, port_grads = _port_grads(pcfg, params, batch, False)
     for k in ("loss_cls", "loss_bbox"):
         np.testing.assert_allclose(float(metrics[k].detach().mean()), jax_metrics[0][k],
                                    rtol=2e-2)
@@ -261,13 +268,13 @@ def test_batch_loss_is_the_mean_of_per_image_losses():
     cancellation: measured at most 1.31e-3 (one thread) and 3.2e-4 (six
     threads), in _[mask]_fcn1_w and _[mask]_fcn2_w. Normalising over the
     flattened batch instead moves both by tens of percent."""
-    cfg = PRESETS[MASK].replace(compute_dtype="float32")
+    cfg, pcfg = _cfgs(MASK, compute_dtype="float32")
     params = _params(cfg)
     batch = _batch(3, cfg.num_classes, True)
     batch["valid"][1, 4:] = False  # the two images have other valid counts
     batch["mask_valid"][1, 2:] = False
-    total, _, grads = _port_grads(cfg, params, batch, True)
-    singles = [_port_grads(cfg, params, {k: v[i:i + 1] for k, v in batch.items()}, True)
+    total, _, grads = _port_grads(pcfg, params, batch, True)
+    singles = [_port_grads(pcfg, params, {k: v[i:i + 1] for k, v in batch.items()}, True)
                for i in range(B)]
     np.testing.assert_allclose(total.numpy(), [float(s[0][0]) for s in singles], rtol=1e-5)
     for k, g in grads.items():
@@ -289,4 +296,4 @@ def test_batch_loss_is_the_mean_of_per_image_losses():
 ])
 def test_unported_training_raises(preset, kwargs, error):
     with pytest.raises(error):
-        make_train_step(PRESETS[preset], SOLVER, **kwargs)
+        make_train_step(PRESETS[preset], PSOLVER, **kwargs)

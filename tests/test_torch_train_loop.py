@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from detectorch_tpu.config import PRESETS, SolverConfig
+from detectorch_tpu.config import PRESETS
 from detectorch_tpu.models.detector import init_params
 from detectorch_tpu.train import losses as jlosses
 from detectorch_tpu.train import solver as jsolver
@@ -33,6 +33,7 @@ from detectorch_tpu_torch.train.train_step import (
     make_train_step,
     state_dict,
 )
+from tests.torch_configs import both_configs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = torch.from_numpy
@@ -89,9 +90,9 @@ def test_expand_bbox_targets_matches_jax(rng):
 
 
 def test_lr_schedule_matches_jax():
-    cfg = SolverConfig()
+    cfg, pcfg = both_configs(lambda c: c.SolverConfig())
     for it in (0, 1, 250, 499, 500, 501, 239999, 240000, 240001, 319999, 320000, 359999):
-        _close(solver.get_lr_at_iter(it, cfg), jsolver.get_lr_at_iter(it, cfg))
+        _close(solver.get_lr_at_iter(it, pcfg), jsolver.get_lr_at_iter(it, cfg))
 
 
 def test_frozen_mask_matches_jax():
@@ -110,13 +111,13 @@ def test_optimizer_matches_optax(rng):
               "res3_0_branch2a_w": (16, 8), "fc6_w": (32, 16), "fc6_b": (32,),
               "rpn_conv_fpn2_w": (8, 8)}
     p0 = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
-    cfg = SolverConfig(base_lr=0.05, warmup_iters=2)
+    cfg, pcfg = both_configs(lambda c: c.SolverConfig(base_lr=0.05, warmup_iters=2))
     mask = solver.frozen_mask(p0)
     tx = jsolver.make_optimizer(cfg, jsolver.frozen_mask(p0))
     jp = {k: jnp.asarray(v) for k, v in p0.items()}
     jstate = tx.init(jp)
     leaves = {k: T(v.copy()).requires_grad_(mask[k]) for k, v in p0.items()}
-    opt = solver.make_optimizer(cfg, leaves, mask)
+    opt = solver.make_optimizer(pcfg, leaves, mask)
     clipped = 0
     for step, gscale in enumerate((1.0, 40.0, 1.0)):
         grads = {k: (rng.randn(*s) * gscale).astype(np.float32) for k, s in shapes.items()}
@@ -128,7 +129,7 @@ def test_optimizer_matches_optax(rng):
         for k, v in leaves.items():
             if mask[k] and k != "rpn_conv_fpn2_w":
                 v.grad = T(grads[k])
-        solver.apply_update(opt, step, cfg)
+        solver.apply_update(opt, step, pcfg)
         for k in shapes:
             np.testing.assert_allclose(leaves[k].detach().numpy(), np.asarray(jp[k]),
                                        rtol=1e-6, atol=1e-8, err_msg=f"{k} step {step}")
@@ -150,10 +151,12 @@ def _tiny_batch(rng, k):
 
 
 def test_checkpoint_resume_is_exact(rng, tmp_path):
-    cfg = PRESETS["fast_rcnn_R-50-FPN_2x"].replace(compute_dtype="float32")
+    cfg, pcfg = both_configs(
+        lambda c: c.PRESETS["fast_rcnn_R-50-FPN_2x"].replace(compute_dtype="float32"))
+    _, psolver = both_configs(lambda c: c.SolverConfig(warmup_iters=0))
     params = params_from_jax(init_params(cfg, seed=0))
-    batch = _tiny_batch(rng, cfg.num_classes)
-    init_state, make_step = make_train_step(cfg, SolverConfig(warmup_iters=0))
+    batch = _tiny_batch(rng, pcfg.num_classes)
+    init_state, make_step = make_train_step(pcfg, psolver)
 
     two, opt = init_state(params)
     step = make_step(opt)
