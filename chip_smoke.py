@@ -13,9 +13,11 @@ Phases — each passes or the script exits non-zero:
   3. the forward kernel against its plain PyTorch version on the card, at
      the inference and eval paths' shapes (batch 8 pyramids at 832x1344 and
      at 1344x832, C = 256; 1000 rois per image at 7x7 and 108 at 14x14),
-     bf16 and fp32 features, with CUDA-event times of both at 832x1344 and
-     each call's bound (the feature bytes its rois touch, counted on the
-     card, read once and the output written once) and share of it;
+     over random rois and over rois half of which crowd around 4 boxes per
+     image, bf16 and fp32 features, with CUDA-event times of both at
+     832x1344 and each call's bound (the feature bytes its rois touch,
+     counted on the card, read once and the output written once) and share
+     of it;
   4. the inference path: e2e_mask_rcnn_R-50-FPN_2x, bf16, batch 8 at
      832x1344, random weights from init_params(seed 0); one warm-up request,
      then three timed requests, with the kernel's launch count checked;
@@ -54,8 +56,8 @@ Phases — each passes or the script exits non-zero:
      single-image engine's.
 
 The line before the last is a JSON summary of the kernels (their times and
-bounds are those of the bf16 7x7 call; "calls" lists every timed call), the
-line before it nvidia-smi's name and power limit; the last line is
+bounds are those of the random bf16 7x7 call; "calls" lists every timed
+call), the line before it nvidia-smi's name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
 """
@@ -304,15 +306,17 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s")
     for kernel in kernels:
         for line in kernel.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"          ptxas: {line.strip()}")
 
 
 def phase_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
                  timing=True):
     """Kernel vs plain at the main paths' shapes, in both bucket orientations
-    (landscape for inference and training, portrait too for eval); returns
-    the summary, whose times are the landscape bf16 7x7 call's."""
+    (landscape for inference and training, portrait too for eval), over
+    random rois and over rois clustered as proposals crowd around objects;
+    returns the summary, whose times are the landscape random bf16 7x7
+    call's."""
     import torch
 
     from detectorch_tpu_torch.config import PRESETS
@@ -323,43 +327,52 @@ def phase_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
     scales = PRESETS[PRESET].fpn_spatial_scales
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
+    # the clustered rois come from a stream of their own, so that the
+    # features and the random rois are those of the earlier runs
+    gen_clustered = torch.Generator(device=device)
+    gen_clustered.manual_seed(8)
     summary = {"max_abs_err": 0.0, "calls": []}
     for h, w in ((height, width), (width, height)):
         timed = timing and (h, w) == (height, width)
         for dtype in (torch.bfloat16, torch.float32):
             feats = make_pyramid(gen, batch, h, w, channels, dtype, device)
             for pooled, n in ((7, BOX_ROIS), (14, MASK_ROIS)):
-                rois = make_rois(gen, batch, n, h, w, device).reshape(-1, 4).contiguous()
-                levels = (map_rois_to_fpn_levels(rois) - 2).contiguous()
-                bidx = torch.arange(batch, dtype=torch.int32, device=device).repeat_interleave(n)
-                args = (feats, rois, bidx, levels, scales, pooled, pooled, 2)
-                got = roi_align_fwd(*args)
-                ref = multilevel_roi_align(*args)
-                if device.type == "cuda":
-                    torch.cuda.synchronize()
-                err = (got - ref).abs().max().item()
-                summary["max_abs_err"] = max(summary["max_abs_err"], err)
-                msg = (f"[3 kernel] {h}x{w} {str(dtype)[6:]:8s} {pooled}x{pooled} x {batch}x{n} "
-                       f"rois: max|kernel - plain| = {err:.3g} (tol {KERNEL_ATOL:g})")
-                if timed:
-                    ms = cuda_time_ms(lambda: roi_align_fwd(*args), iters=20)
-                    plain_ms = cuda_time_ms(lambda: multilevel_roi_align(*args), iters=3,
-                                            warmup=1)
-                    bound_ms, bound_by = fwd_bound(feats, rois, bidx, levels, scales, pooled)
-                    r = batch * n
-                    msg += (f"; kernel {ms:.4f} ms ({ms * 1e3 / r:.4f} us/roi), "
-                            f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / r:.4f} us/roi); "
-                            f"bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}")
-                    summary["calls"].append({
-                        "call": f"{str(dtype)[6:]} {pooled}x{pooled} {r} rois", "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-                    if dtype == torch.bfloat16 and pooled == 7:
-                        summary.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                       bound_by=bound_by)
-                log(msg)
-                check(err <= KERNEL_ATOL, f"kernel disagrees with plain version: {err}")
-                check(bool(torch.isfinite(got).all()), "kernel output not finite")
-                del got, ref
+                for kind, make, g in (("random", make_rois, gen),
+                                      ("clustered", make_clustered_rois, gen_clustered)):
+                    rois = make(g, batch, n, h, w, device).reshape(-1, 4).contiguous()
+                    levels = (map_rois_to_fpn_levels(rois) - 2).contiguous()
+                    bidx = torch.arange(batch, dtype=torch.int32,
+                                        device=device).repeat_interleave(n)
+                    args = (feats, rois, bidx, levels, scales, pooled, pooled, 2)
+                    got = roi_align_fwd(*args)
+                    ref = multilevel_roi_align(*args)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize()
+                    err = (got - ref).abs().max().item()
+                    summary["max_abs_err"] = max(summary["max_abs_err"], err)
+                    msg = (f"[3 kernel] {h}x{w} {str(dtype)[6:]:8s} {kind:9s} {pooled}x{pooled} x "
+                           f"{batch}x{n} rois: max|kernel - plain| = {err:.3g} "
+                           f"(tol {KERNEL_ATOL:g})")
+                    if timed:
+                        ms = cuda_time_ms(lambda: roi_align_fwd(*args), iters=20)
+                        plain_ms = cuda_time_ms(lambda: multilevel_roi_align(*args), iters=3,
+                                                warmup=1)
+                        bound_ms, bound_by = fwd_bound(feats, rois, bidx, levels, scales, pooled)
+                        r = batch * n
+                        msg += (f"; kernel {ms:.4f} ms ({ms * 1e3 / r:.4f} us/roi), "
+                                f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / r:.4f} us/roi); "
+                                f"bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}")
+                        summary["calls"].append({
+                            "call": f"{kind} {str(dtype)[6:]} {pooled}x{pooled} {r} rois",
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by})
+                        if kind == "random" and dtype == torch.bfloat16 and pooled == 7:
+                            summary.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                           bound_by=bound_by)
+                    log(msg)
+                    check(err <= KERNEL_ATOL, f"kernel disagrees with plain version: {err}")
+                    check(bool(torch.isfinite(got).all()), "kernel output not finite")
+                    del got, ref
             del feats
     return summary
 

@@ -8,7 +8,10 @@ for backpressure. Fixed shape buckets mean no collate logic at all — samples
 of one bucket simply stack.
 
 The port's own copy of ``detectorch_tpu/data/loader.py``, held to it by
-tests/test_torch_host_copies.py.
+tests/test_torch_host_copies.py, with one repair: a worker takes its
+prefetch permit before its task, where the original takes it after and can
+deadlock (later items holding every permit while the item the consumer
+waits for blocks on the semaphore).
 """
 
 from __future__ import annotations
@@ -54,13 +57,17 @@ class PrefetchLoader:
         inflight = threading.Semaphore(self.prefetch)
         errors: list = []
 
+        # a worker takes its permit before its task: tasks leave the queue
+        # in order, so the items that hold permits are always the lowest
+        # unconsumed ones, and the one the consumer waits for has a worker
         def worker():
             while True:
+                inflight.acquire()
                 item = task_q.get()
                 if item is _SENTINEL:
+                    inflight.release()
                     return
                 i, idx = item
-                inflight.acquire()
                 try:
                     slots[i].put(self.make_sample(idx))
                 except Exception as e:  # surface in consumer
@@ -81,9 +88,13 @@ class PrefetchLoader:
                     raise errors[0]
                 yield out
         finally:
-            # drain tasks so threads exit
+            # drop the tasks left, then let every worker take a permit and
+            # a sentinel, so that all of them exit
             try:
                 while True:
                     task_q.get_nowait()
             except queue.Empty:
                 pass
+            for _ in threads:
+                task_q.put(_SENTINEL)
+                inflight.release()

@@ -18,6 +18,11 @@ Each wrapper dispatches on where its tensors lie: CPU tensors run the plain
 PyTorch version (``ops/roi_align.multilevel_roi_align`` and
 ``multilevel_roi_align_backward``); CUDA tensors launch the kernel or raise —
 there is no fallback on CUDA.
+
+What each kernel decides per roi is mirrored here in numpy, so that the CPU
+tests can hold it to the plain version: the forward's tap plan
+(``fwd_tap_plan``) and the backward's per-tile roi lists
+(``roi_tile_lists``).
 """
 
 from __future__ import annotations
@@ -287,6 +292,68 @@ def roi_geometry_f32(box, scale, pooled_h, pooled_w, sampling_ratio=2, max_grid=
         grid_h = int(min(max(np.ceil(bin_h), 1), max_grid))
         grid_w = int(min(max(np.ceil(bin_w), 1), max_grid))
     return start_h, start_w, bin_h, bin_w, grid_h, grid_w
+
+
+def axis_taps(start, bin_size, grid, p, size):
+    """The forward kernel's axis_taps, in float32 step by step: the distinct
+    rows (or columns) of `size` that the `grid` samples of bin p reach along
+    one axis, ascending, and their summed bilinear weights. Samples outside
+    [-1, size] add nothing; a sample clamped onto the last row gives both of
+    its weights to it. Returns (taps, weights) as lists."""
+    f = np.float32
+    taps, weights = [], []
+
+    def add(t, w):
+        for k in (-1, -2):  # a new tap matches one of the last two, or is new
+            if len(taps) >= -k and taps[k] == t:
+                weights[k] = f(weights[k] + w)
+                return
+        taps.append(t)
+        weights.append(w)
+
+    fsize = f(size)
+    for i in range(grid):
+        y = _sample_coord(start, bin_size, grid, p, i)
+        if y < -1 or y > fsize:
+            continue
+        y = min(max(y, f(0)), f(fsize - 1))
+        y0 = int(np.floor(y))
+        y1 = min(y0 + 1, size - 1)
+        ly = f(y - f(y0))
+        add(y0, f(f(1) - ly))
+        add(y1, ly)
+    return taps, weights
+
+
+def fwd_tap_plan(feature_shapes, rois, batch_idx, levels, level_scales, pooled_h, pooled_w,
+                 sampling_ratio=2, max_grid=8):
+    """The forward kernel's tap plan, built on the CPU as each of its blocks
+    builds it: per roi None for a level or image out of range (the block
+    stages nothing and writes zeros), else a dict with its ``level``,
+    ``image``, ``inv_count`` and, per bin row ph, ``rows[ph]`` = (rows,
+    weights) and per bin column pw ``cols[pw]`` = (columns, weights): the
+    feature rows and columns that the kernel loads for the roi's bins, with
+    the weights it sums them by."""
+    shapes = [tuple(int(d) for d in s[:3]) for s in feature_shapes]
+    rois = np.asarray(torch.as_tensor(rois, dtype=torch.float32).cpu())
+    batch_idx = np.asarray(torch.as_tensor(batch_idx).cpu())
+    levels = np.asarray(torch.as_tensor(levels).cpu())
+    plans = []
+    for r in range(len(rois)):
+        lvl, b = int(levels[r]), int(batch_idx[r])
+        if not (0 <= lvl < len(shapes) and 0 <= b < shapes[0][0]):
+            plans.append(None)
+            continue
+        _, height, width = shapes[lvl]
+        sh, sw, bh, bw, gh, gw = roi_geometry_f32(rois[r], level_scales[lvl], pooled_h,
+                                                  pooled_w, sampling_ratio, max_grid)
+        plans.append({
+            "level": lvl, "image": b,
+            "inv_count": np.float32(np.float32(1) / np.float32(gh * gw)),
+            "rows": [axis_taps(sh, bh, gh, ph, height) for ph in range(pooled_h)],
+            "cols": [axis_taps(sw, bw, gw, pw, width) for pw in range(pooled_w)],
+        })
+    return plans
 
 
 def roi_tile_lists(feature_shapes, rois, batch_idx, levels, level_scales, pooled_h, pooled_w,

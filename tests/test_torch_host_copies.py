@@ -269,11 +269,11 @@ def test_training_stats_match(rng):
 
 @pytest.mark.parametrize("count,workers,prefetch", [(12, 4, 16), (20, 1, 4)])
 def test_prefetch_loader_matches(count, workers, prefetch):
-    """Results in submission order. Both copies can deadlock when more than
-    `prefetch` later items take their permits before an earlier one (a
-    fault of the original, kept in the copy): the engine's setting (4
-    workers, 16 in flight) over fewer items than it prefetches, and one
-    worker, cannot."""
+    """Results in submission order, as the original gives them. The
+    original can deadlock when more than `prefetch` later items take their
+    permits before an earlier one (the copy is repaired, see the next
+    test), so it runs where it cannot: the engine's setting (4 workers, 16
+    in flight) over fewer items than it prefetches, and one worker."""
     def make(i):
         return i * i
 
@@ -282,3 +282,34 @@ def test_prefetch_loader_matches(count, workers, prefetch):
     assert got == list(jloader.PrefetchLoader(range(count), make, num_workers=workers,
                                               prefetch=prefetch))
     assert got == [i * i for i in range(count)]
+
+
+@pytest.mark.parametrize("trial", range(3))
+def test_prefetch_loader_slow_first_item_does_not_deadlock(trial):
+    """3 workers, 4 in flight, 20 items, the first a 20 ms pure-Python
+    computation (it holds the GIL, as a slow decode does) and the rest
+    instant: in the original, the workers that finish the later items take
+    every permit while the worker of an earlier item waits for one, and the
+    consumer waits for that item forever. The copy takes a permit before a
+    task, so all items arrive, in order. The loader runs in a daemon thread
+    under a timeout, so a deadlock fails the test instead of hanging it."""
+    import threading
+    import time
+
+    def make(i):
+        if i == 0:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 0.02:
+                pass
+        return i
+
+    got = []
+
+    def consume():
+        got.extend(tloader.PrefetchLoader(range(20), make, num_workers=3, prefetch=4))
+
+    thread = threading.Thread(target=consume, daemon=True)
+    thread.start()
+    thread.join(timeout=10)
+    assert not thread.is_alive(), f"loader deadlocked after {len(got)} of 20 items"
+    assert got == list(range(20))

@@ -1,4 +1,5 @@
-"""The port's RoIAlign against the JAX package, and its wrapper's dispatch.
+"""The port's RoIAlign against the JAX package, its wrapper's dispatch, and
+the forward kernel's tap plan.
 
 The port's plain PyTorch RoIAlign (``ops/roi_align.multilevel_roi_align``)
 is the version the CUDA kernel is held to on the card; here it is held to
@@ -10,6 +11,14 @@ sample geometry and sum at most 4x4 weighted taps of |v| < 5 per bin, so
 they differ only by summation order. Against the Pallas kernel, atol 1e-4,
 as tests/test_pallas_roi_align.py holds that kernel to the gather: it sums
 by hat-matrix matmuls over a whole slab.
+
+The forward kernel decides per roi which feature rows and columns it loads
+for each bin row and bin column, and by which summed weights
+(``ops/cuda/roi_align_kernel.fwd_tap_plan`` mirrors that decision in numpy).
+Every live tap of the plain version must lie in the plan, and the plan's
+separable sum, inv_count * Ky . F . Kx^T, must give the plain version's
+values: atol 1e-5, as on the card (the same fp32 weights summed per row and
+column, another order).
 """
 
 import jax.numpy as jnp
@@ -24,9 +33,11 @@ from detectorch_tpu_torch.models.detector import make_inference_fn
 from detectorch_tpu_torch.ops.cuda.roi_align_kernel import (
     RoIAlignForward,
     check_precision,
+    fwd_tap_plan,
     roi_align_fwd,
 )
-from detectorch_tpu_torch.ops.roi_align import multilevel_roi_align
+from detectorch_tpu_torch.ops.fpn_levels import map_rois_to_fpn_levels
+from detectorch_tpu_torch.ops.roi_align import _bilinear_taps, multilevel_roi_align
 
 SCALES = (0.25, 0.125, 0.0625, 0.03125)
 H, W = 320, 512  # P2 is 80x128: wider than the TPU kernel's 64-pixel slab
@@ -148,3 +159,97 @@ def test_precision_other_than_exact_raises(precision):
         roi_align_fwd_precision=precision)
     with pytest.raises(ValueError, match="roi_align_fwd_precision"):
         make_inference_fn(cfg, None)
+
+
+def _smoke_rois(batch, n, height, width):
+    """chip_smoke.make_rois (random rois plus its edge cases: extreme aspect,
+    partly and fully outside, degenerate, tiny, whole image) at the main
+    path's 832x1344, with the levels the detector maps them to."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    rois = cs.make_rois(gen, batch, n, height, width, torch.device("cpu")).reshape(-1, 4)
+    levels = (map_rois_to_fpn_levels(rois) - 2).to(torch.int32)
+    bidx = torch.arange(batch, dtype=torch.int32).repeat_interleave(n)
+    return rois.contiguous().numpy(), bidx.numpy(), levels.numpy()
+
+
+def _roi_set(rng, kind):
+    """(rois, bidx, levels, level shapes (B, H_l, W_l)) of one case."""
+    if kind == "small":
+        rois, bidx, levels = _rois(rng, 2, 40)
+        height, width = H, W
+    else:
+        height, width = 832, 1344
+        rois, bidx, levels = _smoke_rois(2, 48, height, width)
+    shapes = [(2, height // s, width // s) for s in (4, 8, 16, 32)]
+    return rois, bidx, levels, shapes
+
+
+CASES = [(pooled, sr, kind) for pooled in (7, 14) for sr in (2, 0) for kind in ("small", "smoke")]
+
+
+@pytest.mark.parametrize("pooled,sampling_ratio,kind", CASES)
+def test_fwd_tap_plan_holds_every_live_tap(rng, pooled, sampling_ratio, kind):
+    rois, bidx, levels, shapes = _roi_set(rng, kind)
+    plan = fwd_tap_plan(shapes, rois, bidx, levels, SCALES, pooled, pooled, sampling_ratio)
+    idx, wts, _, _, s = _bilinear_taps(shapes, torch.from_numpy(rois), torch.from_numpy(bidx),
+                                       torch.from_numpy(levels), SCALES, pooled, pooled,
+                                       sampling_ratio, 8)
+    live = (wts[0] != 0).numpy().reshape(len(rois), pooled, pooled, s * s)
+    offsets = np.cumsum([0] + [int(np.prod(sh)) for sh in shapes])
+    n_live = 0
+    for r, p in enumerate(plan):
+        assert p is not None and (p["level"], p["image"]) == (levels[r], bidx[r])
+        _, h, w = shapes[p["level"]]
+        for i in idx:
+            local = i[r].numpy().reshape(pooled, pooled, s * s) - offsets[p["level"]] \
+                - p["image"] * h * w
+            ys, xs = local // w, local % w
+            for ph in range(pooled):
+                rows = p["rows"][ph][0]
+                assert rows == sorted(set(rows))
+                m = live[r, ph]
+                assert np.isin(ys[ph][m], rows).all(), (r, ph)
+            for pw in range(pooled):
+                cols = p["cols"][pw][0]
+                assert cols == sorted(set(cols))
+                m = live[r, :, pw]
+                assert np.isin(xs[:, pw][m], cols).all(), (r, pw)
+        n_live += int(live[r].sum())
+    assert n_live > 0
+
+
+@pytest.mark.parametrize("pooled,sampling_ratio,kind", CASES[::2] + CASES[1::4])
+def test_fwd_tap_plan_sums_to_plain(rng, pooled, sampling_ratio, kind):
+    rois, bidx, levels, shapes = _roi_set(rng, kind)
+    feats = [rng.randn(*sh, 8).astype(np.float32) for sh in shapes]
+    plan = fwd_tap_plan(shapes, rois, bidx, levels, SCALES, pooled, pooled, sampling_ratio)
+    exp = _port(feats, rois, bidx, levels, pooled, sampling_ratio).numpy()
+    got = np.zeros_like(exp)
+    for r, p in enumerate(plan):
+        f = feats[p["level"]][p["image"]]
+        ky = np.zeros((pooled, f.shape[0]), np.float32)
+        kx = np.zeros((pooled, f.shape[1]), np.float32)
+        for k, axis in ((ky, "rows"), (kx, "cols")):
+            for q, (taps, weights) in enumerate(p[axis]):
+                k[q, taps] = weights
+        got[r] = np.einsum("py,qx,yxc->pqc", ky, kx, f, optimize=True) * p["inv_count"]
+    np.testing.assert_allclose(got, exp, rtol=0, atol=1e-5)
+    assert np.abs(exp).max() > 0.5
+
+
+def test_fwd_tap_plan_out_of_range_stages_nothing(rng):
+    rois, bidx, levels = _rois(rng, 2, 10)
+    levels[:4] = [-1, 4, 0, 1]
+    bidx[:4] = [0, 1, -1, 2]
+    shapes = [(2, H // s, W // s) for s in (4, 8, 16, 32)]
+    plan = fwd_tap_plan(shapes, rois, bidx, levels, SCALES, 7, 7)
+    assert plan[:4] == [None] * 4
+    assert all(p is not None for p in plan[4:])
