@@ -53,11 +53,26 @@ Phases — each passes or the script exits non-zero:
      of its image's size, 12 + 12 finite COCOeval stats, 2 forward kernel
      launches per batch; then, in fp32 (TF32 off) with masks fetched in
      fp32, the batched engine's results for the first 4 images equal to the
-     single-image engine's.
+     single-image engine's;
+ 10. the e2e training path: e2e_mask_rcnn_R-50-FPN_2x with the mask branch,
+     bf16, batch 8 in the 832x1344 bucket from the uint8 schema (COCO-sized
+     noise images resized on the card), 3-20 gts per image in 128 slots with
+     polygon masks, RPN 12000 -> 2000 per level, 512 rois per image: one
+     warm-up step, three timed steps (ms/step, img/s, peak memory), 2
+     forward + 2 backward kernel launches per step, six finite losses, the
+     loss lower after 5 steps on the one batch, the fifth step split by
+     stage (a synchronise after each), the most sampled rois on one
+     backward tile, and a sixth step under torch.profiler (device busy
+     time and idle share, host syncs, the operators with most device time);
+ 11. one image of the e2e step in fp32 (TF32 off) with one fixed set of
+     uniforms: gradients through the kernels against the kernel forward
+     with the plain backward and against both plain versions, held as in
+     phase 8, and the same sampled rois and labels in all three runs.
 
 The line before the last is a JSON summary of the kernels (their times and
 bounds are those of the random bf16 7x7 call; "calls" lists every timed
-call), the line before it nvidia-smi's name and power limit; the last line is
+call; "launches" counts phase 10's three steps, "launches_by_path" each
+path's timed run), the line before it nvidia-smi's name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
 """
@@ -781,6 +796,27 @@ def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     return launches, rate
 
 
+def compare_grads(got, other):
+    """Gradients through the kernels against another run's, per leaf: the
+    worst leaf's max|d| / max|g|, the worst leaf's largest error outside its
+    worst output channel (a ReLU flip moves one channel), and the lowest
+    cosine."""
+    worst_rel, worst_rest, worst_cos = 0.0, 0.0, 1.0
+    for k, g in got.items():
+        scale = other[k].abs().max().item()
+        if scale == 0:
+            check(g.abs().max().item() == 0, f"{k}: gradient where the plain run has none")
+            continue
+        per_channel = (g - other[k]).abs().reshape(len(g), -1).amax(dim=1).sort().values
+        rest = per_channel[-2].item() if len(per_channel) > 1 else 0.0
+        a, e = g.double().flatten(), other[k].double().flatten()
+        cos = (a @ e / (a.norm() * e.norm())).item()
+        worst_rel = max(worst_rel, per_channel[-1].item() / scale)
+        worst_rest = max(worst_rest, rest / scale)
+        worst_cos = min(worst_cos, cos)
+    return worst_rel, worst_rest, worst_cos
+
+
 def phase_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, rois_per_image=TRAIN_ROIS,
                      mask_rows=TRAIN_MASK_ROWS):
     """One image of the fp32 training step: gradients through the kernels
@@ -830,27 +866,8 @@ def phase_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, rois_per_imag
                                           bwd=multilevel_roi_align_backward))
     check(g_k.keys() == g_kp.keys() == g_p.keys(), "different leaves received gradients")
 
-    def compare(other):
-        """Worst leaf max|d| / max|g|, the worst leaf's largest error outside
-        its worst output channel (a ReLU flip moves one channel), and the
-        lowest cosine."""
-        worst_rel, worst_rest, worst_cos = 0.0, 0.0, 1.0
-        for k, g in g_k.items():
-            scale = other[k].abs().max().item()
-            if scale == 0:
-                check(g.abs().max().item() == 0, f"{k}: gradient where the plain run has none")
-                continue
-            per_channel = (g - other[k]).abs().reshape(len(g), -1).amax(dim=1).sort().values
-            rest = per_channel[-2].item() if len(per_channel) > 1 else 0.0
-            a, e = g.double().flatten(), other[k].double().flatten()
-            cos = (a @ e / (a.norm() * e.norm())).item()
-            worst_rel = max(worst_rel, per_channel[-1].item() / scale)
-            worst_rest = max(worst_rest, rest / scale)
-            worst_cos = min(worst_cos, cos)
-        return worst_rel, worst_rest, worst_cos
-
-    rel_kp, _, cos_kp = compare(g_kp)
-    rel_p, rest_p, cos_p = compare(g_p)
+    rel_kp, _, cos_kp = compare_grads(g_k, g_kp)
+    rel_p, rest_p, cos_p = compare_grads(g_k, g_p)
     log(f"[8 fp32 grads] 1 image, {len(g_k)} trainable leaves with gradients; loss "
         f"kernels {loss_k:.6f}, plain {loss_p:.6f}; kernel fwd+bwd vs kernel fwd + plain bwd: "
         f"worst leaf max|d| / max|g| {rel_kp:.3g} (tol {GRAD_REL:g}), min cosine {cos_kp:.8f}; "
@@ -1035,6 +1052,308 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
     return launches
 
 
+def make_e2e_batch(rng, orig_sizes, blob_hw, target_size, max_size, gt_range, device):
+    """An e2e training batch in the uint8 schema, made with numpy: uint8
+    noise images of `orig_sizes`, padded to one raw bucket, with their
+    resize tables and meta (``data.device_input``); per image a number of
+    gts in `gt_range`, each a 12-gon with jittered radii whose tight box is
+    the gt box, classes 1-80, and its raster wrt its own box at
+    GT_RASTER_RES (``train.sampler.polys_to_mask_wrt_box``), padded to
+    GT_PAD slots as the trainer pads them."""
+    import numpy as np
+    import torch
+
+    from detectorch_tpu_torch.data.device_input import RAW_STRIDE, pack_tables_meta, prepare_raw
+    from detectorch_tpu_torch.tools.train_fast import GT_PAD
+    from detectorch_tpu_torch.train.e2e import GT_RASTER_RES
+    from detectorch_tpu_torch.train.sampler import polys_to_mask_wrt_box
+
+    raw_hw = (max(-(-h // RAW_STRIDE) * RAW_STRIDE for h, _ in orig_sizes),
+              max(-(-w // RAW_STRIDE) * RAW_STRIDE for _, w in orig_sizes))
+    out = {k: [] for k in ("raw", "tables", "meta", "gt_boxes", "gt_classes", "gt_valid",
+                           "gt_masks", "gt_mask_valid")}
+    for h, w in orig_sizes:
+        raw, m = prepare_raw(rng.randint(0, 256, (h, w, 3)).astype(np.uint8), target_size,
+                             max_size, buckets=(blob_hw,))
+        padded = np.zeros(raw_hw + (3,), np.uint8)
+        padded[: raw.shape[0], : raw.shape[1]] = raw
+        tables, meta = pack_tables_meta(m)
+        n = rng.randint(gt_range[0], gt_range[1] + 1)
+        boxes = np.zeros((GT_PAD, 4), np.float32)
+        masks = np.zeros((GT_PAD, GT_RASTER_RES, GT_RASTER_RES), np.uint8)
+        for j in range(n):
+            radius = rng.uniform(0.03, 0.3) * min(h, w)
+            cx, cy = rng.uniform(radius, w - radius), rng.uniform(radius, h - radius)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, 12))
+            rad = radius * (0.6 + 0.4 * rng.rand(12))
+            px, py = cx + rad * np.cos(ang), cy + rad * np.sin(ang)
+            box = np.array([px.min(), py.min(), px.max(), py.max()])
+            masks[j] = polys_to_mask_wrt_box([np.stack([px, py], 1).reshape(-1)], box,
+                                             GT_RASTER_RES)
+            boxes[j] = box * m["scale"]
+        valid = np.arange(GT_PAD) < n
+        for k, v in (("raw", padded), ("tables", tables), ("meta", meta), ("gt_boxes", boxes),
+                     ("gt_classes", np.where(valid, rng.randint(1, 81, GT_PAD), 0).astype(np.int32)),
+                     ("gt_valid", valid), ("gt_masks", masks), ("gt_mask_valid", valid)):
+            out[k].append(v)
+    return {k: torch.from_numpy(np.stack(v)).to(device) for k, v in out.items()}
+
+
+# COCO-like landscape image sizes of phase 10's batch; all resize into the
+# 832x1344 bucket at target size 800, max size 1333
+E2E_SIZES = ((480, 640), (427, 640), (500, 750), (375, 500), (480, 640), (426, 640),
+             (512, 683), (640, 853))
+TRAIN_PRE, TRAIN_POST = 12000, 2000  # the reference's train counts
+
+
+def profile_step(run, device, top=8):
+    """One call of run() under torch.profiler: its host-clock time, the
+    union of its kernels' device intervals (busy) and the idle share of the
+    window, the host's cudaStreamSynchronize calls, and the `top` operators
+    by the device time of their kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # the union of the intervals, in us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    syncs = sum(e.name == "cudaStreamSynchronize" for e in events)
+
+    # operators (not their kernels, which would count the time twice) by
+    # the device time of the kernels they launch
+    ops = [a for a in prof.key_averages() if a.device_type == DeviceType.CPU]
+    by_name = sorted(ops, key=lambda a: a.self_device_time_total, reverse=True)[:top]
+    check(busy > 0, "the profiler saw no device time")
+    return {"wall_ms": wall, "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / 1e3 / wall,
+            "syncs": syncs,
+            "top": [(a.key[:48], a.self_device_time_total / 1e3) for a in by_name]}
+
+
+def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZES,
+                    target_size=800, max_size=1333, rois_per_image=TRAIN_ROIS, pre=TRAIN_PRE,
+                    post=TRAIN_POST, gt_range=(3, 20), card=""):
+    """The e2e Mask R-CNN step through both kernels, in the uint8 schema;
+    returns the launch counts of the three timed steps and the step rate."""
+    import numpy as np
+    import torch
+
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
+    from detectorch_tpu_torch.config import PRESETS, SamplerConfig, SolverConfig
+    from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import (
+        roi_align_bwd,
+        roi_align_fwd,
+        roi_tile_lists,
+    )
+    from detectorch_tpu_torch.ops.fpn_levels import map_rois_to_fpn_levels
+    from detectorch_tpu_torch.train.e2e import e2e_losses, make_e2e_train_step, torch_uniforms
+    from detectorch_tpu_torch.train.solver import apply_update
+    from detectorch_tpu_torch.train.train_step import device_images
+
+    cfg = cfg or PRESETS[PRESET]
+    batch = len(sizes)
+    t0 = time.perf_counter()
+    params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
+    # random weights on one fixed batch: as in phase 7, 1e-4 makes the loss fall
+    solver = SolverConfig(base_lr=1e-4, warmup_iters=0)
+    sampler = SamplerConfig(rois_per_image=rois_per_image)
+    init_state, make_step = make_e2e_train_step(
+        cfg, solver, sampler, seed=0, train_pre_nms=pre, train_post_nms=post, train_mask=True,
+        device_input=True, blob_hw=(height, width), roi_align_impl="pallas-slab")
+    state, opt = init_state(params)
+    del params
+    step = make_step(opt)
+    fixed = make_e2e_batch(np.random.RandomState(10), sizes, (height, width), target_size,
+                           max_size, gt_range, device)
+    n_gt = fixed["gt_valid"].sum(dim=1).tolist()
+    log(f"[10 e2e] {cfg.name} compute={cfg.compute_dtype} batch={batch} in {height}x{width}, "
+        f"uint8 input (raw {tuple(fixed['raw'].shape[1:3])}), gts per image {n_gt} of "
+        f"{fixed['gt_valid'].shape[1]} slots, RPN {pre} -> {post} per level, {rois_per_image} "
+        f"rois per image: params + batch in {time.perf_counter() - t0:.2f} s")
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def run():
+        nonlocal state
+        state, metrics = step(state, fixed)
+        values = {k: float(v) for k, v in metrics.items()}
+        sync()
+        check(all(np.isfinite(v) for v in values.values()), f"non-finite metrics {values}")
+        return values
+
+    t0 = time.perf_counter()
+    losses = [run()["loss"]]
+    log(f"[10 e2e] warm-up step: {time.perf_counter() - t0:.3f} s")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    roi_align_fwd.launches = roi_align_bwd.launches = 0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(run()["loss"])
+        times.append(time.perf_counter() - t0)
+    launches = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": roi_align_bwd.launches}
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else 0.0
+
+    # the fifth step in stages, synchronised after each
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        sync()
+        marks.append((name, time.perf_counter()))
+
+    images = device_images(fixed, (height, width))
+    mark("device preprocess")
+    draw = torch_uniforms(0)
+    total, metrics, sampled = e2e_losses(
+        state.params, cfg, sampler, images, fixed["gt_boxes"], fixed["gt_classes"],
+        fixed["gt_valid"], fixed["meta"][:, 2:5],
+        lambda na, nc: draw(state.step, batch, na, nc, device), train_pre_nms=pre,
+        train_post_nms=post, extras={"gt_masks": fixed["gt_masks"],
+                                     "gt_mask_valid": fixed["gt_mask_valid"]}, stage=mark)
+    loss = total.mean()
+    loss.backward()
+    mark("backward")
+    apply_update(opt, state.step, solver)
+    mark("update")
+    stages = [(name, (t - marks[i][1]) * 1e3) for i, (name, t) in enumerate(marks[1:])]
+    last = {k: float(v.detach().mean()) for k, v in metrics.items()}
+    last["loss"] = float(loss.detach())
+    check(all(np.isfinite(v) for v in last.values()), f"non-finite metrics {last}")
+    check({"loss_cls", "loss_bbox", "loss_rpn_cls", "loss_rpn_bbox", "accuracy",
+           "loss_mask"} <= set(last), f"metrics {sorted(last)}")
+    losses.append(last["loss"])
+
+    # how the sampled rois crowd the backward kernel's tiles
+    fg_rows = int(round(sampler.fg_fraction * rois_per_image))
+    shapes = [(batch, height // s, width // s, cfg.fpn.channels) for s in (4, 8, 16, 32)]
+    crowd = []
+    for rows, pooled in ((rois_per_image, cfg.roi_size), (fg_rows, cfg.mask.roi_size)):
+        rois = sampled.rois[:, :rows].reshape(-1, 4).float().contiguous()
+        levels = (map_rois_to_fpn_levels(rois) - 2).to(torch.int32).contiguous()
+        bidx = torch.arange(batch, dtype=torch.int32, device=device).repeat_interleave(rows)
+        starts, _ = roi_tile_lists(shapes, rois, bidx, levels, cfg.fpn_spatial_scales, pooled,
+                                   pooled)
+        crowd.append(int((starts[1:] - starts[:-1]).max()))
+    n_fg = (sampled.labels > 0).sum(dim=1).tolist()
+
+    profile = profile_step(run, device) if device.type == "cuda" else None
+
+    rate = batch * len(times) / sum(times)
+    log(f"[10 e2e] steps: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms -> "
+        f"{sum(times) / len(times) * 1e3:.1f} ms/step, {rate:.2f} img/s on {card or device}; "
+        f"peak memory {peak:.2f} GiB; kernel launches in 3 steps {launches}")
+    log(f"[10 e2e] step 5 in stages (ms): "
+        + ", ".join(f"{name} {ms:.1f}" for name, ms in stages)
+        + f"; total {sum(ms for _, ms in stages):.1f}")
+    log(f"[10 e2e] step 5 sample: fg rois per image {n_fg}, valid rois per image "
+        f"{sampled.valid.sum(dim=1).tolist()}; most rois on one backward tile: {crowd[0]} (box, "
+        f"{cfg.roi_size}x{cfg.roi_size}), {crowd[1]} (mask rows, "
+        f"{cfg.mask.roi_size}x{cfg.mask.roi_size})")
+    log(f"[10 e2e] loss over 5 steps on one batch: {', '.join(f'{v:.4f}' for v in losses)}; "
+        f"step 5 {', '.join(f'{k} {v:.4f}' for k, v in last.items())}")
+    if profile:
+        log(f"[10 e2e] step 6 under torch.profiler: {profile['wall_ms']:.1f} ms, device busy "
+            f"{profile['busy_ms']:.1f} ms, idle share {profile['idle_share']:.3f}; "
+            f"{profile['syncs']} cudaStreamSynchronize calls; most device time: "
+            + ", ".join(f"{name} {ms:.2f} ms" for name, ms in profile["top"]))
+    if device.type == "cuda":
+        check(launches == {"roi_align_fwd": 6, "roi_align_bwd": 6},
+              f"kernel launches {launches} in 3 steps, expected 2 forward + 2 backward each")
+    check(losses[-1] < losses[0], f"loss did not fall over 5 steps: {losses}")
+    return launches, rate
+
+
+def phase_e2e_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZES[:1],
+                         target_size=800, max_size=1333, rois_per_image=TRAIN_ROIS,
+                         pre=TRAIN_PRE, post=TRAIN_POST, gt_range=(3, 20)):
+    """One image of the fp32 e2e step with one fixed set of uniforms:
+    gradients through the kernels (K), through the kernel forward and the
+    plain backward (KP), and through both plain versions (P), held as in
+    phase 8; the three runs sample the same rois."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
+    from detectorch_tpu_torch.config import PRESETS, SamplerConfig, SolverConfig
+    from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
+    from detectorch_tpu_torch.ops.roi_align import (
+        multilevel_roi_align,
+        multilevel_roi_align_backward,
+    )
+    from detectorch_tpu_torch.ops.roi_align_fused import roi_align_fused
+    from detectorch_tpu_torch.train.e2e import e2e_losses, torch_uniforms
+    from detectorch_tpu_torch.train.train_step import device_images, make_init_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = (cfg or PRESETS[PRESET]).replace(compute_dtype="float32")
+    params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
+    b = make_e2e_batch(np.random.RandomState(11), sizes, (height, width), target_size, max_size,
+                       gt_range, device)
+    images = device_images(b, (height, width))
+    sampler = SamplerConfig(rois_per_image=rois_per_image)
+    init_state = make_init_state(SolverConfig())
+    drawn = {}
+
+    def uniforms(n_anchors, n_cand):  # drawn once, the same for all three runs
+        if not drawn:
+            drawn.update(torch_uniforms(11)(0, len(sizes), n_anchors, n_cand, device))
+        return drawn
+
+    def grads(roi_align):
+        state, _ = init_state(params)
+        total, _, sampled = e2e_losses(
+            state.params, cfg, sampler, images, b["gt_boxes"], b["gt_classes"], b["gt_valid"],
+            b["meta"][:, 2:5], uniforms, train_pre_nms=pre, train_post_nms=post,
+            extras={"gt_masks": b["gt_masks"], "gt_mask_valid": b["gt_mask_valid"]},
+            roi_align=roi_align)
+        total.sum().backward()
+        return float(total.detach().sum()), {k: v.grad for k, v in state.params.items()
+                                             if v.grad is not None}, sampled
+
+    loss_k, g_k, s_k = grads(roi_align_fused)
+    loss_kp, g_kp, s_kp = grads(functools.partial(roi_align_fused, fwd=roi_align_fwd,
+                                                  bwd=multilevel_roi_align_backward))
+    loss_p, g_p, s_p = grads(functools.partial(roi_align_fused, fwd=multilevel_roi_align,
+                                               bwd=multilevel_roi_align_backward))
+    check(g_k.keys() == g_kp.keys() == g_p.keys(), "different leaves received gradients")
+    same = all(torch.equal(s_k.rois, s.rois) and torch.equal(s_k.labels, s.labels)
+               and torch.equal(s_k.valid, s.valid) for s in (s_kp, s_p))
+    rel_kp, _, cos_kp = compare_grads(g_k, g_kp)
+    rel_p, rest_p, cos_p = compare_grads(g_k, g_p)
+    log(f"[11 e2e fp32 grads] {len(sizes)} image, {len(g_k)} trainable leaves with gradients, "
+        f"{int((s_k.labels > 0).sum())} fg of {int(s_k.valid.sum())} sampled rois, the same "
+        f"rois and labels in all three runs: {same}; loss kernels {loss_k:.6f}, plain "
+        f"{loss_p:.6f}; kernel fwd+bwd vs kernel fwd + plain bwd: worst leaf max|d| / max|g| "
+        f"{rel_kp:.3g} (tol {GRAD_REL:g}), min cosine {cos_kp:.8f}; vs plain fwd+bwd: worst "
+        f"{rel_p:.3g} (tol {FLIP_REL:g}), worst outside each leaf's worst channel "
+        f"{rest_p:.3g}, min cosine {cos_p:.8f} (tol {GRAD_COS})")
+    check(same, "the runs sampled different rois or labels")
+    check("rpn_cls_logits_fpn2_w" in g_k, "the RPN head received no gradient")
+    check(loss_k == loss_kp, "the same forward gave two losses")
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), f"losses differ: {loss_k} vs {loss_p}")
+    check(rel_kp <= GRAD_REL, f"backward kernel moves a gradient by {rel_kp} of its scale")
+    check(rel_p <= FLIP_REL and cos_p >= GRAD_COS,
+          f"gradients through the kernels differ from the plain versions: {rel_p}, {cos_p}")
+
+
 def main() -> int:
     import torch
 
@@ -1059,6 +1378,8 @@ def main() -> int:
     train_launches, _ = phase_train(device, card=smi)
     phase_fp32_grads(device)
     eval_launches = phase_eval(device, card=smi)
+    e2e_launches, _ = phase_e2e_train(device, card=smi)
+    phase_e2e_fp32_grads(device)
     source = "detectorch_tpu_torch/csrc"
     replaces = "detectorch_tpu/ops/pallas/roi_align_kernel.py"
     kernels = [{
@@ -1066,10 +1387,11 @@ def main() -> int:
         "route": "cuda",
         "source": f"{source}/roi_align_fwd.cu",
         "replaces": f"{replaces}:164",
-        "launches": train_launches["roi_align_fwd"],
+        "launches": e2e_launches["roi_align_fwd"],
         "launches_by_path": {"inference": infer_launches,
                              "training": train_launches["roi_align_fwd"],
-                             "eval": eval_launches},
+                             "eval": eval_launches,
+                             "e2e_training": e2e_launches["roi_align_fwd"]},
         "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"],
         "plain_ms": summary["plain_ms"],
@@ -1082,8 +1404,9 @@ def main() -> int:
         "route": "cuda",
         "source": f"{source}/roi_align_bwd.cu",
         "replaces": f"{replaces}:489",
-        "launches": train_launches["roi_align_bwd"],
-        "launches_by_path": {"training": train_launches["roi_align_bwd"]},
+        "launches": e2e_launches["roi_align_bwd"],
+        "launches_by_path": {"training": train_launches["roi_align_bwd"],
+                             "e2e_training": e2e_launches["roi_align_bwd"]},
         "max_abs_err": bwd_summary["max_abs_err"],
         "ms": bwd_summary["ms"],
         "plain_ms": bwd_summary["plain_ms"],

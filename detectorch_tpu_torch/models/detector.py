@@ -78,37 +78,65 @@ def _roi_levels(cfg: ModelConfig, rois):
     ) - f.roi_min_level
 
 
+def rpn_feature_levels(cfg: ModelConfig, pyramid):
+    """The RPN's inputs: NHWC [P2..P5] (plus P6, subsampled from P5, when
+    cfg.fpn.extra_level) and their FPN levels."""
+    fcfg = cfg.fpn
+    levels = list(range(fcfg.roi_min_level, fcfg.roi_max_level + 1))
+    feats = list(pyramid)
+    if fcfg.extra_level:
+        feats.append(fpn_mod.subsample2x(pyramid[-1]))
+        levels.append(fcfg.roi_max_level + 1)
+    return feats, levels
+
+
+def level_anchors(cfg: ModelConfig, fh: int, fw: int, lvl: int, device, cache: dict):
+    """(fh*fw*A, 4) anchors of one FPN level in the NHWC (H, W, A) order:
+    stride 2**lvl, one size 32 * 2**(lvl-2); kept in `cache` per shape,
+    level and device."""
+    key = (fh, fw, lvl, device)
+    if key not in cache:
+        cache[key] = torch.as_tensor(shifted_anchors(
+            int(fh), int(fw), float(2 ** lvl), (32.0 * 2 ** (lvl - 2),),
+            tuple(cfg.anchors.aspect_ratios),
+        ), device=device)
+    return cache[key]
+
+
 def _fpn_level_proposals(params, cfg: ModelConfig, pyramid, im_h, im_w, im_scale,
                          anchor_cache: Optional[dict] = None):
-    """Shared-head RPN on P2..P6 for a batch; per-level decode, ONE batched
-    NMS over (image x level), then the global collect.
+    """Shared-head RPN on P2..P6 for a batch, then ``fpn_proposals`` at
+    cfg.rpn's counts.
 
     pyramid: NHWC [P2..P5] (B, H_l, W_l, C); im_h, im_w, im_scale: (B,).
     Returns rpn.Proposals with (B, post_nms_top_n, ...) fields."""
+    feats, levels = rpn_feature_levels(cfg, pyramid)
+    heads = [rpn_mod.rpn_head(params, f, prefix="_fpn2") for f in feats]
+    return fpn_proposals(cfg, [h[0] for h in heads], [h[1] for h in heads], levels,
+                         im_h, im_w, im_scale, cfg.rpn.pre_nms_top_n,
+                         cfg.rpn.post_nms_top_n, anchor_cache)
+
+
+def fpn_proposals(cfg: ModelConfig, level_probs, level_deltas, levels, im_h, im_w,
+                  im_scale, pre: int, post: int, anchor_cache: Optional[dict] = None):
+    """Per-level decode of the RPN's outputs, ONE batched NMS over (image x
+    level), then the global collect: JAX's ``rpn.generate_proposals`` on
+    each level with pre_nms_top_n = min(pre, fh*fw*A) and post_nms_top_n =
+    post, then ``collect_proposals(..., post)``.
+
+    level_probs (B, fh, fw, A) objectness probabilities and level_deltas
+    (B, fh, fw, 4A), per level in `levels`; im_h, im_w, im_scale: (B,) clip
+    and min-size bounds. Returns rpn.Proposals with (B, post, ...) fields."""
     rpn_cfg = cfg.rpn
-    fcfg = cfg.fpn
-    levels = list(range(fcfg.roi_min_level, fcfg.roi_max_level + 1))
-    rpn_feats = list(pyramid)
-    if fcfg.extra_level:
-        rpn_feats.append(fpn_mod.subsample2x(pyramid[-1]))
-        rpn_levels = levels + [fcfg.roi_max_level + 1]
-    else:
-        rpn_levels = levels
     cache = {} if anchor_cache is None else anchor_cache
-    pre = rpn_cfg.pre_nms_top_n
     h_b, w_b, s_b = im_h[:, None], im_w[:, None], im_scale[:, None]
+    # every level padded to the widest level's candidate count
+    width = max(min(pre, p[0].numel()) for p in level_probs)
 
     cand_boxes, cand_scores, cand_valid = [], [], []
-    for feat, lvl in zip(rpn_feats, rpn_levels):
-        cls_prob, bbox_pred = rpn_mod.rpn_head(params, feat, prefix="_fpn2")
+    for cls_prob, bbox_pred, lvl in zip(level_probs, level_deltas, levels):
         bsz, fh, fw, _ = cls_prob.shape
-        key = (fh, fw, lvl, feat.device)
-        if key not in cache:
-            cache[key] = torch.as_tensor(shifted_anchors(
-                int(fh), int(fw), float(2 ** lvl), (32.0 * 2 ** (lvl - 2),),
-                tuple(cfg.anchors.aspect_ratios),
-            ), device=feat.device)
-        anchors = cache[key]
+        anchors = level_anchors(cfg, fh, fw, lvl, cls_prob.device, cache)
         # NHWC flatten == the (H, W, A) anchor order
         scores = cls_prob.reshape(bsz, -1)
         deltas = bbox_pred.reshape(bsz, -1, 4)
@@ -118,23 +146,22 @@ def _fpn_level_proposals(params, cfg: ModelConfig, pyramid, im_h, im_w, im_scale
             anchors[top_idx], torch.gather(deltas, 1, top_idx[..., None].expand(-1, -1, 4)))
         props = box_ops.clip_boxes(props, h_b, w_b)
         ok = box_ops.filter_boxes_mask(props, rpn_cfg.min_size, s_b, h_b, w_b)
-        if k < pre:
-            props = torch.nn.functional.pad(props, (0, 0, 0, pre - k))
-            top_scores = torch.nn.functional.pad(top_scores, (0, pre - k))
-            ok = torch.nn.functional.pad(ok, (0, pre - k))
+        if k < width:
+            props = torch.nn.functional.pad(props, (0, 0, 0, width - k))
+            top_scores = torch.nn.functional.pad(top_scores, (0, width - k))
+            ok = torch.nn.functional.pad(ok, (0, width - k))
         cand_boxes.append(props)
         cand_scores.append(top_scores)
         cand_valid.append(ok)
 
-    n_lvl = len(rpn_feats)
-    boxes = torch.stack(cand_boxes, dim=1)    # (B, L, pre, 4)
-    scores = torch.stack(cand_scores, dim=1)  # (B, L, pre)
+    n_lvl = len(level_probs)
+    boxes = torch.stack(cand_boxes, dim=1)    # (B, L, width, 4)
+    scores = torch.stack(cand_scores, dim=1)  # (B, L, width)
     valid = torch.stack(cand_valid, dim=1)
     bsz = boxes.shape[0]
-    post = rpn_cfg.post_nms_top_n
     idx, ok = batched_nms(
-        boxes.reshape(bsz * n_lvl, pre, 4), scores.reshape(bsz * n_lvl, pre),
-        post, rpn_cfg.nms_thresh, valid=valid.reshape(bsz * n_lvl, pre),
+        boxes.reshape(bsz * n_lvl, width, 4), scores.reshape(bsz * n_lvl, width),
+        post, rpn_cfg.nms_thresh, valid=valid.reshape(bsz * n_lvl, width),
     )
     idx = idx.reshape(bsz, n_lvl, post)
     ok = ok.reshape(bsz, n_lvl, post)

@@ -18,9 +18,11 @@ from detectorch_tpu_torch.models.resnet import conv, to_nchw, to_nhwc
 from detectorch_tpu_torch.ops.nms import topk_stable
 
 
-def rpn_head(params, x, prefix: str = ""):
+def rpn_head(params, x, prefix: str = "", return_logits: bool = False):
     """x: (N, H, W, C) NHWC. Returns (cls_prob (N,H,W,A), bbox_pred (N,H,W,4A)),
-    both fp32 NHWC. prefix '' for C4 blobs, '_fpn2' for the shared FPN head."""
+    both fp32 NHWC. prefix '' for C4 blobs, '_fpn2' for the shared FPN head.
+    return_logits=True returns the objectness logits instead of their
+    sigmoid (the e2e RPN loss needs logits)."""
     xc = to_nchw(x)
 
     def bias(name):
@@ -31,7 +33,7 @@ def rpn_head(params, x, prefix: str = ""):
               + bias(f"rpn_cls_logits{prefix}_b")).float()
     bbox_pred = (conv(h, params[f"rpn_bbox_pred{prefix}_w"])
                  + bias(f"rpn_bbox_pred{prefix}_b")).float()
-    return to_nhwc(torch.sigmoid(logits)), to_nhwc(bbox_pred)
+    return to_nhwc(logits if return_logits else torch.sigmoid(logits)), to_nhwc(bbox_pred)
 
 
 class Proposals(NamedTuple):

@@ -72,6 +72,30 @@ def bbox_transform(boxes, deltas, weights=(1.0, 1.0, 1.0, 1.0)):
     return out.reshape(shape)
 
 
+def bbox_transform_inv(boxes, gt_boxes, weights=(1.0, 1.0, 1.0, 1.0)):
+    """Encode regression targets on the device: boxes, gt_boxes (..., 4)
+    (broadcasting) -> (..., 4) [tx, ty, tw, th], JAX's
+    ``ops.boxes.bbox_transform_inv`` term for term."""
+    ex_w = boxes[..., 2] - boxes[..., 0] + 1.0
+    ex_h = boxes[..., 3] - boxes[..., 1] + 1.0
+    ex_cx = boxes[..., 0] + 0.5 * ex_w
+    ex_cy = boxes[..., 1] + 0.5 * ex_h
+    gt_w = gt_boxes[..., 2] - gt_boxes[..., 0] + 1.0
+    gt_h = gt_boxes[..., 3] - gt_boxes[..., 1] + 1.0
+    gt_cx = gt_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = gt_boxes[..., 1] + 0.5 * gt_h
+    wx, wy, ww, wh = weights
+    return torch.stack(
+        [
+            wx * (gt_cx - ex_cx) / ex_w,
+            wy * (gt_cy - ex_cy) / ex_h,
+            ww * torch.log(gt_w / ex_w),
+            wh * torch.log(gt_h / ex_h),
+        ],
+        dim=-1,
+    )
+
+
 def bbox_transform_inv_np(boxes, gt_boxes, weights=(1.0, 1.0, 1.0, 1.0)):
     """Encode regression targets in numpy, for host-side data preparation
     (roidb targets, the roi sampler): boxes, gt_boxes (..., 4) ->

@@ -1,22 +1,31 @@
-"""Fast R-CNN / Mask R-CNN training on the FPN path, in PyTorch.
+"""Fast, Faster and Mask R-CNN training on the FPN path, in PyTorch.
 
-Port of ``tools/train_fast.py`` for ``--fpn`` and ``--fpn --masks``: the
-Detectron 2x schedule (SGD momentum 0.9, wd 1e-4, step-decay LR with
-linear warmup, grad clip 35, conv1 + res2 frozen) from precomputed
-proposals, with the same argument names and defaults for the options it
-keeps, ``ckpt-<step>`` checkpoints under --out and ``--resume``. The roidb
-comes from ``data.coco.roidb_for_training``; images are read and resized by
-``data.transforms`` and mask targets rasterised by ``train.sampler``, both
-of which use OpenCV (cv2).
+Port of ``tools/train_fast.py`` for ``--fpn``: the Detectron 2x schedule
+(SGD momentum 0.9, wd 1e-4, step-decay LR with linear warmup, grad clip
+35, conv1 + res2 frozen), with the same argument names and defaults for the
+options it keeps, ``ckpt-<step>`` checkpoints under --out and ``--resume``.
 
-  python -m detectorch_tpu_torch.tools.train_fast --fpn \\
-      --ann instances_train2014.json --imdir train2014 \\
-      --proposals proposals.pkl --out runs/fast_rcnn
+  * default: Fast R-CNN from precomputed proposals (``--masks``: Mask
+    R-CNN, whose rois may come from the gt boxes alone);
+  * ``--e2e``: end-to-end training, RPN and heads jointly, with anchor
+    targets, roi sampling and (with ``--masks``) mask targets made inside
+    the step from the gt boxes (``train.e2e``); no proposal file;
+  * ``--device-preprocess``: the uint8 schema, raw pixels and resize tables
+    uploaded and resized on the device (``data.device_input``);
+  * ``--prefetch N``: batches built by one producer thread behind an N-deep
+    queue, in the same order and with the same draws as without it; the
+    copy to the device stays on the main thread.
+
+The roidb comes from ``data.coco.roidb_for_training``; images are read and
+resized by ``data.transforms`` and masks rasterised by ``train.sampler``,
+which use OpenCV (cv2).
+
+  python -m detectorch_tpu_torch.tools.train_fast --fpn --e2e --masks \\
+      --ann instances_train2014.json --imdir train2014 --out runs/mask_rcnn
 
 --base-cnn loads an ImageNet base CNN from a Detectron ``.pkl``
 (``checkpoint.caffe2_import.import_base_cnn``); the heads keep their random
-init. Not ported yet, and refused: --e2e, --keypoints, --device-preprocess
-and the C4 presets (no --fpn).
+init. Not ported yet, and refused: --keypoints and the C4 presets (no --fpn).
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ def parse_args(argv=None):
     p.add_argument("--log-period", type=int, default=20)
     p.add_argument("--seed", type=int, default=3)
     p.add_argument("--device-preprocess", action="store_true",
-                   help="uint8 upload with on-device resize (not ported yet: refused)")
+                   help="upload raw uint8 pixels and resize/normalise on the device "
+                        "(flips applied to the uint8 pixels on the host)")
     p.add_argument("--target-size", type=int, default=800,
                    help="resize shorter side to this (reference 800)")
     p.add_argument("--max-size", type=int, default=1333,
@@ -57,6 +67,10 @@ def parse_args(argv=None):
     p.add_argument("--blob", type=int, nargs=2, default=(1344, 1344), metavar=("H", "W"),
                    help="fixed training blob bucket")
     p.add_argument("--rois-per-image", type=int, default=512)
+    p.add_argument("--prefetch", type=int, default=0,
+                   help="N > 0: build batches in a producer thread behind an N-deep "
+                        "queue, overlapping host input preparation with the device; "
+                        "0 = synchronous. Same draws either way (one producer)")
     p.add_argument("--roi-align", choices=["auto", "gather", "pallas", "pallas-mm", "pallas-slab"],
                    default="auto",
                    help="the JAX package's RoIAlign names; the port's RoIAlign is exact, so "
@@ -70,19 +84,21 @@ def parse_args(argv=None):
     p.add_argument("--masks", action="store_true",
                    help="train Mask R-CNN: box branch + mask head with "
                         "polys_to_mask_wrt_box targets")
-    p.add_argument("--e2e", action="store_true", help="not ported yet: refused")
+    p.add_argument("--e2e", action="store_true",
+                   help="end-to-end training: RPN and heads jointly, anchor targets, "
+                        "roi sampling and mask targets made inside the step from the gt "
+                        "boxes (no proposal file); composes with --masks")
     p.add_argument("--device", default="cuda", help="torch device to train on")
     args = p.parse_args(argv)
-    for flag in ("e2e", "keypoints", "device_preprocess"):
-        if getattr(args, flag):
-            p.error(f"--{flag.replace('_', '-')} is not ported to PyTorch yet")
+    if args.keypoints:
+        p.error("--keypoints is not ported to PyTorch yet")
     if args.base_cnn and not os.path.isfile(args.base_cnn):
         p.error(f"--base-cnn {args.base_cnn}: no such file")
     if not args.fpn:
         p.error("the C4 presets are not ported to PyTorch yet: pass --fpn")
-    if not args.masks and not args.proposals:
+    if not args.masks and not args.e2e and not args.proposals:
         # Fast R-CNN needs hard negatives from precomputed proposals
-        p.error("--proposals is required unless --masks is given")
+        p.error("--proposals is required unless --masks or --e2e is given")
     return args
 
 
@@ -94,10 +110,8 @@ def main(argv=None):
     from detectorch_tpu_torch.checkpoint import store
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.config import PRESETS, SamplerConfig, SolverConfig, TestConfig
-    from detectorch_tpu_torch.data import transforms as T
     from detectorch_tpu_torch.data.coco import roidb_for_training
     from detectorch_tpu_torch.models.detector import init_params
-    from detectorch_tpu_torch.train.sampler import sample_rois
     from detectorch_tpu_torch.train.train_step import (
         load_state_dict,
         make_train_step,
@@ -106,7 +120,10 @@ def main(argv=None):
     from detectorch_tpu_torch.utils.stats import TrainingStats
 
     device = torch.device(args.device)
-    preset = "e2e_mask_rcnn_R-50-FPN_2x" if args.masks else "fast_rcnn_R-50-FPN_2x"
+    if args.masks:
+        preset = "e2e_mask_rcnn_R-50-FPN_2x"
+    else:
+        preset = "e2e_faster_rcnn_R-50-FPN_2x" if args.e2e else "fast_rcnn_R-50-FPN_2x"
     cfg = PRESETS[preset].replace(arch=args.arch,
                                   roi_align_fwd_precision=args.roi_align_fwd_precision)
     solver = SolverConfig(base_lr=args.base_lr, max_iter=args.max_iter,
@@ -114,17 +131,20 @@ def main(argv=None):
     sampler_cfg = SamplerConfig(rois_per_image=args.rois_per_image)
     test_cfg = TestConfig(target_size=args.target_size, max_size=args.max_size)
     roi_align_impl = "pallas-slab" if args.roi_align == "auto" else args.roi_align
-    init_state, make_step = make_train_step(
-        cfg, solver, train_mask=args.masks, roi_align_impl=roi_align_impl,
-        bwd_precision=args.roi_align_bwd_precision)
+    blob_hw = tuple(args.blob)
+    kwargs = dict(train_mask=args.masks, device_input=args.device_preprocess, blob_hw=blob_hw,
+                  roi_align_impl=roi_align_impl, bwd_precision=args.roi_align_bwd_precision)
+    if args.e2e:
+        from detectorch_tpu_torch.train.e2e import make_e2e_train_step
+
+        init_state, make_step = make_e2e_train_step(cfg, solver, sampler_cfg, seed=args.seed,
+                                                    **kwargs)
+    else:
+        init_state, make_step = make_train_step(cfg, solver, **kwargs)
 
     print("loading roidb...", flush=True)
     _, roidb = roidb_for_training(args.ann, args.imdir, args.proposals)
     print(f"roidb: {len(roidb)} entries", flush=True)
-    # the sampler puts foreground rows first, so the first fg-capacity rows
-    # hold every possible mask-training roi
-    fg_rows = int(np.round(sampler_cfg.fg_fraction * sampler_cfg.rois_per_image))
-    mask_res = cfg.mask.resolution if args.masks else 0
 
     params = params_from_jax(init_params(cfg, seed=args.seed))
     if args.base_cnn:
@@ -142,38 +162,36 @@ def main(argv=None):
             start_iter = state.step
             print(f"resumed from {latest} at iter {start_iter}", flush=True)
 
-    batch_size = args.batch_size or 1
-    blob_hw = tuple(args.blob)
-    rng = np.random.RandomState(args.seed)
+    make_batch_np = BatchMaker(args, cfg, sampler_cfg, test_cfg, roidb)
+
+    def put_batch(np_batch):
+        # the copy to the device stays on the main thread
+        return {k: torch.from_numpy(v).to(device) for k, v in np_batch.items()}
+
+    if args.prefetch > 0:
+        import queue
+        import threading
+
+        batches: "queue.Queue" = queue.Queue(maxsize=args.prefetch)
+
+        def produce():
+            while True:
+                batches.put(make_batch_np())
+
+        threading.Thread(target=produce, daemon=True).start()
+
+        def next_batch():
+            return put_batch(batches.get())
+    else:
+        def next_batch():
+            return put_batch(make_batch_np())
+
     stats = TrainingStats(args.max_iter, args.log_period)
-    keys = ["image", "rois", "labels", "bbox_targets", "bbox_inside_weights",
-            "bbox_outside_weights", "valid"]
-    if args.masks:
-        keys += ["mask_targets", "mask_valid"]
-
-    def make_batch():
-        batch = {k: [] for k in keys}
-        for _ in range(batch_size):
-            e = roidb[rng.randint(len(roidb))]
-            im = T.load_image_rgb(e.file_path)
-            if e.flipped:
-                im = im[:, ::-1]
-            image, scale, _ = T.preprocess_image(im, test_cfg.target_size, test_cfg.max_size,
-                                                 buckets=(blob_hw,))
-            blobs = sample_rois(e, scale, rng, sampler_cfg, cfg.num_classes,
-                                mask_resolution=mask_res)
-            blobs["image"] = image
-            if args.masks:
-                blobs["mask_targets"] = blobs["mask_targets"][:fg_rows]
-                blobs["mask_valid"] = blobs["mask_valid"][:fg_rows]
-            for k in keys:
-                batch[k].append(blobs[k])
-        return {k: torch.from_numpy(np.stack(v)).to(device) for k, v in batch.items()}
-
-    loss_keys = ("loss", "loss_cls", "loss_bbox") + (("loss_mask",) if args.masks else ())
+    loss_keys = ("loss", "loss_cls", "loss_bbox") + (("loss_mask",) if args.masks else ()) \
+        + (("loss_rpn_cls", "loss_rpn_bbox") if args.e2e else ())
     for it in range(start_iter, args.max_iter):
         stats.iter_tic()
-        state, metrics = step_fn(state, make_batch())
+        state, metrics = step_fn(state, next_batch())
         losses = {k: float(metrics[k]) for k in loss_keys}
         stats.iter_toc()
         stats.update_iter_stats(it, losses, {"accuracy": float(metrics["accuracy"])})
@@ -181,6 +199,104 @@ def main(argv=None):
         if (it + 1) % args.checkpoint_period == 0 or (it + 1) == args.max_iter:
             path = store.save_checkpoint(args.out, it + 1, state_dict(state))
             print(f"saved {path}", flush=True)
+
+
+# one fixed gt capacity per image, as the JAX trainer's (COCO has at most ~93)
+GT_PAD = 128
+
+
+class BatchMaker:
+    """Makes one numpy training batch per call, on any one thread: images
+    drawn from the roidb with the trainer's RandomState, read, flipped,
+    and resized on the host or packed for ``--device-preprocess``; then the
+    host-sampled rois (Fast / Mask R-CNN) or the padded gt boxes, classes
+    and mask rasters (``--e2e``; crowd gts dropped)."""
+
+    def __init__(self, args, cfg, sampler_cfg, test_cfg, roidb):
+        from detectorch_tpu_torch.data.device_input import RAW_STRIDE
+
+        self.args, self.cfg, self.sampler_cfg, self.test_cfg = args, cfg, sampler_cfg, test_cfg
+        self.roidb = roidb
+        self.rng = np.random.RandomState(args.seed)
+        self.blob_hw = tuple(args.blob)
+        self.batch_size = args.batch_size or 1
+        # the sampler puts foreground rows first, so the first fg-capacity
+        # rows hold every possible mask-training roi
+        self.fg_rows = int(np.round(sampler_cfg.fg_fraction * sampler_cfg.rois_per_image))
+        # one raw bucket: the largest original image, padded to RAW_STRIDE
+        self.raw_hw = (max(-(-e.height // RAW_STRIDE) * RAW_STRIDE for e in roidb),
+                       max(-(-e.width // RAW_STRIDE) * RAW_STRIDE for e in roidb))
+
+    def __call__(self):
+        batch = {}
+        for _ in range(self.batch_size):
+            e = self.roidb[self.rng.randint(len(self.roidb))]
+            for k, v in self._one(e).items():
+                batch.setdefault(k, []).append(v)
+        return {k: np.stack(v) for k, v in batch.items()}
+
+    def _one(self, e):
+        from detectorch_tpu_torch.data import transforms as T
+        from detectorch_tpu_torch.data.device_input import pack_tables_meta, prepare_raw
+        from detectorch_tpu_torch.train.sampler import sample_rois
+
+        args, tcfg = self.args, self.test_cfg
+        im = T.load_image_rgb(e.file_path)
+        if e.flipped:
+            # flip the uint8 pixels before the resize, like the reference; the
+            # flipped roidb entry's boxes and polygons are flipped already
+            im = np.ascontiguousarray(im[:, ::-1])
+        out = {}
+        if args.device_preprocess:
+            raw, m = prepare_raw(im.astype(np.uint8), tcfg.target_size, tcfg.max_size,
+                                 buckets=(self.blob_hw,))
+            out["raw"] = np.zeros(self.raw_hw + (3,), np.uint8)
+            out["raw"][: raw.shape[0], : raw.shape[1]] = raw
+            out["tables"], out["meta"] = pack_tables_meta(m)
+            scale = m["scale"]
+        else:
+            out["image"], scale, _ = T.preprocess_image(im, tcfg.target_size, tcfg.max_size,
+                                                        buckets=(self.blob_hw,))
+        if args.e2e:
+            if not args.device_preprocess:
+                out["info"] = np.asarray([round(e.height * scale), round(e.width * scale),
+                                          scale], np.float32)
+            out.update(self._gts(e, scale))
+            return out
+        mask_res = self.cfg.mask.resolution if args.masks else 0
+        blobs = sample_rois(e, scale, self.rng, self.sampler_cfg, self.cfg.num_classes,
+                            compact_targets=args.device_preprocess, mask_resolution=mask_res)
+        keys = ["rois", "labels", "valid"] + (
+            ["bbox_targets_compact"] if args.device_preprocess
+            else ["bbox_targets", "bbox_inside_weights", "bbox_outside_weights"])
+        out.update({k: blobs[k] for k in keys})
+        if args.masks:
+            out["mask_targets"] = blobs["mask_targets"][: self.fg_rows]
+            out["mask_valid"] = blobs["mask_valid"][: self.fg_rows]
+        return out
+
+    def _gts(self, e, scale):
+        """Padded gts of one image; with --masks one raster per gt, wrt its
+        own box (the step crop-resizes it into each sampled roi's frame)."""
+        from detectorch_tpu_torch.train.e2e import GT_RASTER_RES
+        from detectorch_tpu_torch.train.sampler import polys_to_mask_wrt_box
+
+        # crowd regions are never positive targets (upstream roi_data/rpn.py)
+        gi = np.where((e.gt_classes > 0) & (e.is_crowd == 0))[0][:GT_PAD]
+        out = {"gt_boxes": np.zeros((GT_PAD, 4), np.float32),
+               "gt_classes": np.zeros(GT_PAD, np.int32), "gt_valid": np.zeros(GT_PAD, bool)}
+        out["gt_boxes"][: len(gi)] = e.boxes[gi] * scale
+        out["gt_classes"][: len(gi)] = e.gt_classes[gi]
+        out["gt_valid"][: len(gi)] = True
+        if self.args.masks:
+            out["gt_masks"] = np.zeros((GT_PAD, GT_RASTER_RES, GT_RASTER_RES), np.uint8)
+            out["gt_mask_valid"] = np.zeros(GT_PAD, bool)
+            for i, ind in enumerate(gi):
+                segm = e.segms[ind] if ind < len(e.segms) else None
+                if isinstance(segm, list) and segm:
+                    out["gt_masks"][i] = polys_to_mask_wrt_box(segm, e.boxes[ind], GT_RASTER_RES)
+                    out["gt_mask_valid"][i] = True
+        return out
 
 
 if __name__ == "__main__":

@@ -45,6 +45,8 @@ def test_port_imports_without_jax():
     assert "detectorch_tpu_torch.tools.train_fast" in mods
     assert "detectorch_tpu_torch.eval.engine" in mods
     assert "detectorch_tpu_torch.tools.eval_coco" in mods
+    assert "detectorch_tpu_torch.train.e2e" in mods
+    assert "detectorch_tpu_torch.tools.make_proposals" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n" + LEAK_CHECK)
     proc = _python(["-c", code], cwd=REPO)
@@ -133,12 +135,54 @@ assert len(bbox) == len(segm) == 12 and len(info["segm"]) == 12, (bbox, segm)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_e2e_training_and_proposals_run_without_jax(tmp_path):
+    # the e2e trainer's data path (uint8 input, gt rasters, a producer
+    # thread) for one iteration, then make_proposals on a Detectron pkl
+    # written by the port, on a synthetic COCO set made here
+    from detectorch_tpu.data.synth import build_synth_coco
+
+    ann, imdir = build_synth_coco(str(tmp_path / "ds"), n_images=2, height=96, width=128,
+                                  seed=13)
+    code = """
+import dataclasses, os, sys
+import detectorch_tpu_torch.config as config
+from detectorch_tpu_torch.checkpoint import caffe2_import as c2
+from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+from detectorch_tpu_torch.models.detector import init_params
+from detectorch_tpu_torch.tools import make_proposals, train_fast
+
+ann, imdir, tmp = sys.argv[1:4]
+train_fast.main(["--ann", ann, "--imdir", imdir, "--fpn", "--e2e", "--masks",
+                 "--device-preprocess", "--prefetch", "2", "--out", os.path.join(tmp, "run"),
+                 "--max-iter", "1", "--target-size", "96", "--max-size", "128",
+                 "--blob", "96", "128", "--rois-per-image", "16", "--device", "cpu"])
+assert os.path.exists(os.path.join(tmp, "run", "ckpt-1"))
+preset = "e2e_faster_rcnn_R-50-FPN_2x"
+cfg = config.PRESETS[preset]
+config.PRESETS[preset] = cfg.replace(
+    rpn=dataclasses.replace(cfg.rpn, pre_nms_top_n=300, post_nms_top_n=64))
+small = config.TestConfig
+config.TestConfig = lambda: small(target_size=96, max_size=128, exact_blob_dims=True)
+c2.save_caffe2_pkl(params_from_jax(init_params(cfg, seed=0)), cfg, os.path.join(tmp, "m.pkl"))
+make_proposals.main(["--preset", preset, "--weights", os.path.join(tmp, "m.pkl"),
+                     "--ann", ann, "--imdir", imdir, "--out", os.path.join(tmp, "p.pkl"),
+                     "--fp32", "--device", "cpu"])
+assert os.path.exists(os.path.join(tmp, "p.pkl"))
+""" + LEAK_CHECK
+    # the Tier-1 command's six workers share the cores: one torch thread
+    proc = _python(["-c", code, ann, imdir, str(tmp_path)], cwd=REPO,
+                   env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_no_jax_import_in_port_sources():
     # neither jax nor any module of the JAX package, at any indentation
     pattern = re.compile(r"^\s*(import|from) (jax|detectorch_tpu)(\.|\s|$)", re.M)
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "detectorch_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for rel in ("train/e2e.py", "tools/make_proposals.py", "tools/train_fast.py"):
+        assert os.path.join(REPO, "detectorch_tpu_torch", rel) in paths, rel
     offenders = [p for p in paths if pattern.search(open(p).read())]
     assert not offenders
     assert pattern.search("    from detectorch_tpu.config import PRESETS\n")

@@ -38,6 +38,7 @@ from detectorch_tpu.train.sampler import expand_bbox_targets
 from detectorch_tpu.train.train_step import make_train_step as jax_make_train_step
 from detectorch_tpu_torch.checkpoint.convert import params_from_jax
 from detectorch_tpu_torch.config import PRESETS
+from detectorch_tpu_torch.train.e2e import make_e2e_train_step
 from detectorch_tpu_torch.train.train_step import box_branch_loss, make_train_step
 from tests.torch_configs import both_configs
 
@@ -290,10 +291,19 @@ def test_batch_loss_is_the_mean_of_per_image_losses():
 @pytest.mark.parametrize("preset,kwargs,error", [
     ("e2e_mask_rcnn_R-50-C4_2x", {}, NotImplementedError),
     ("e2e_keypoint_rcnn_R-50-FPN_1x", {}, NotImplementedError),
-    (FAST, {"device_input": True}, NotImplementedError),
     (FAST, {"train_mask": True}, ValueError),
     (FAST, {"roi_align_impl": "pallas-mm"}, ValueError),
 ])
 def test_unported_training_raises(preset, kwargs, error):
     with pytest.raises(error):
         make_train_step(PRESETS[preset], PSOLVER, **kwargs)
+
+
+@pytest.mark.parametrize("preset,kwargs", [
+    ("e2e_faster_rcnn_R-50-C4_2x", {}),
+    ("e2e_keypoint_rcnn_R-50-FPN_1x", {}),
+    ("e2e_keypoint_rcnn_R-50-FPN_1x", {"train_keypoints": True}),
+], ids=["C4", "keypoint-preset", "train_keypoints"])
+def test_unported_e2e_training_raises(preset, kwargs):
+    with pytest.raises(NotImplementedError):
+        make_e2e_train_step(PRESETS[preset], PSOLVER, **kwargs)

@@ -177,13 +177,14 @@ def test_checkpoint_resume_is_exact(rng, tmp_path):
         assert torch.equal(fresh.params[k], v), k
 
 
-@pytest.mark.parametrize("flag", [["--e2e"], ["--keypoints"], ["--device-preprocess"],
-                                  ["--base-cnn", "missing-R-50.pkl"], []])
-def test_cli_refuses_unported_modes(flag):
-    # --base-cnn is ported; a base CNN file that does not exist is refused
-    fpn = [] if not flag else ["--fpn"]  # no --fpn: the C4 presets
+@pytest.mark.parametrize("flags", [["--fpn", "--keypoints"],
+                                   ["--fpn", "--base-cnn", "missing-R-50.pkl"], [], ["--e2e"]],
+                         ids=["--keypoints", "--base-cnn", "no-fpn", "--e2e-no-fpn"])
+def test_cli_refuses_unported_modes(flags):
+    # --base-cnn is ported; a base CNN file that does not exist is refused.
+    # Without --fpn, the C4 presets: refused with --masks and with --e2e
     with pytest.raises(SystemExit):
-        train_fast.parse_args(["--ann", "a.json", "--imdir", "im", "--masks", *fpn, *flag])
+        train_fast.parse_args(["--ann", "a.json", "--imdir", "im", "--masks", *flags])
 
 
 def test_cli_trains_and_resumes(tmp_path):
@@ -250,3 +251,55 @@ def test_cli_trains_from_a_base_cnn(tmp_path):
     exp = params_from_jax({k: backbone[k] for k in ("conv1_w", "res2_0_branch2a_w")})
     for k, v in exp.items():
         assert torch.equal(saved[k], v), k
+
+
+def _train_cli(tmp_path, name, ann, imdir, *flags):
+    """Two iterations of the port's trainer on the CPU with one torch thread;
+    returns its stdout and the params of ckpt-2."""
+    out = str(tmp_path / name)
+    proc = subprocess.run(
+        [sys.executable, "-m", "detectorch_tpu_torch.tools.train_fast", "--ann", ann,
+         "--imdir", imdir, "--fpn", "--out", out, "--max-iter", "2", "--checkpoint-period",
+         "2", "--log-period", "1", "--base-lr", "0.001", "--target-size", "96", "--max-size",
+         "128", "--blob", "96", "128", "--rois-per-image", "16", "--device", "cpu", *flags],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.count("json_stats") == 2
+    return proc.stdout, store.restore_checkpoint(os.path.join(out, "ckpt-2"))["params"]
+
+
+def test_cli_e2e_prefetch_is_exact(tmp_path):
+    """``train_fast --fpn --e2e --masks`` on the synthetic COCO set, no
+    proposal file: 2 iterations move the RPN head and the mask head; with
+    ``--prefetch 2`` (batches from a producer thread) the params after 2
+    iterations are equal bit for bit."""
+    from detectorch_tpu.data.synth import build_synth_coco
+
+    ann, imdir = build_synth_coco(str(tmp_path / "ds"), n_images=3, height=96, width=128,
+                                  seed=9)
+    out, params = _train_cli(tmp_path, "sync", ann, imdir, "--e2e", "--masks")
+    assert all(k in out for k in ("loss_rpn_cls", "loss_rpn_bbox", "loss_mask"))
+    _, prefetched = _train_cli(tmp_path, "prefetch", ann, imdir, "--e2e", "--masks",
+                               "--prefetch", "2")
+    assert params.keys() == prefetched.keys()
+    for k, v in params.items():
+        assert torch.equal(prefetched[k], v), k
+    init = params_from_jax(init_params(PRESETS["e2e_mask_rcnn_R-50-FPN_2x"], seed=3))
+    for k in ("conv_rpn_fpn2_w", "rpn_cls_logits_fpn2_w", "conv5_mask_w", "fc6_w"):
+        assert not torch.equal(params[k], init[k]), k
+
+
+@pytest.mark.parametrize("mode", ["e2e", "fast"])
+def test_cli_device_preprocess_trains(tmp_path, mode):
+    """``--device-preprocess``: uint8 images resized on the device, in the
+    e2e step and in the Fast R-CNN step from proposals (compact targets)."""
+    from detectorch_tpu.data.synth import build_synth_coco, write_proposals_pkl
+
+    ann, imdir = build_synth_coco(str(tmp_path / "ds"), n_images=2, height=90, width=120,
+                                  seed=10)
+    flags = ["--e2e"] if mode == "e2e" else [
+        "--proposals", write_proposals_pkl(ann, str(tmp_path / "props.pkl"))]
+    out, params = _train_cli(tmp_path, "run", ann, imdir, "--device-preprocess", *flags)
+    assert ("loss_rpn_cls" in out) == (mode == "e2e")
+    assert all(bool(torch.isfinite(v).all()) for v in params.values())
