@@ -67,12 +67,34 @@ Phases — each passes or the script exits non-zero:
  11. one image of the e2e step in fp32 (TF32 off) with one fixed set of
      uniforms: gradients through the kernels against the kernel forward
      with the plain backward and against both plain versions, held as in
-     phase 8, and the same sampled rois and labels in all three runs.
+     phase 8, and the same sampled rois and labels in all three runs;
+ 12. the C4 family, e2e_mask_rcnn_R-50-C4_2x, from here on at batch 8 and
+     832x1344 (c4 is 52x84x1024), with c4_weights: both kernels at the C4
+     call's shapes (one level at 1/16, sampling_ratio 0 with max_grid 8,
+     14x14 bins; 1000 and 108 rois per image forward, 512 and 128 backward;
+     random and clustered rois; bf16 and fp32) against the plain separable
+     form on the card (JAX's two-matmul formulation, fp32 cuBLAS), within
+     1e-5 of max|plain|, the backward's launches bitwise equal and its bf16
+     the fp32 rounded once, with times, bounds, shares and the longest
+     backward tile list;
+ 13. C4 inference (RPN 6000 -> 1000, 100 + 8 detection slots): a warm-up
+     and three timed requests with peak memory and launches, one request
+     split by stage, 2 images in fp32 with the kernels against the
+     separable form; then two R-101-FPN requests (e2e_mask_rcnn_R-101-FPN_2x);
+ 14. C4 evaluation of phase 9's 36 images through evaluate_dataset, the C4
+     Detectron pkl written and read back, with the batched-vs-single fp32
+     parity (near-tied scores paired in either order);
+ 15. the C4 training steps: make_train_step with masks on host-sampled rois
+     and make_e2e_train_step with masks from uint8 input (12000 -> 2000),
+     each as phases 7 and 10 (ms/step, img/s, peak memory, launches, the
+     loss over 5 steps, the most rois on one backward tile);
+ 16. one image of the C4 training step in fp32, held as phase 8.
 
 The line before the last is a JSON summary of the kernels (their times and
 bounds are those of the random bf16 7x7 call; "calls" lists every timed
-call; "launches" counts phase 10's three steps, "launches_by_path" each
-path's timed run), the line before it nvidia-smi's name and power limit; the last line is
+call, FPN and C4; "launches" counts phase 10's three steps,
+"launches_by_path" each path's timed run), the line before it nvidia-smi's
+name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
 """
@@ -438,7 +460,7 @@ def check_outputs(out, cfg, test_cfg, batch):
 
 
 def phase_main_path(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
-                    test_cfg=None, requests=3, card=""):
+                    test_cfg=None, requests=3, card="", tag="4 main", params=None):
     import torch
 
     from detectorch_tpu_torch.config import PRESETS, TestConfig
@@ -449,11 +471,12 @@ def phase_main_path(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     cfg = cfg or PRESETS[PRESET]
     test_cfg = test_cfg or TestConfig()
     t0 = time.perf_counter()
-    params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
+    if params is None:
+        params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     batch_args = _batch(gen, batch, height, width, device)
-    log(f"[4 main] {cfg.name} compute={cfg.compute_dtype} batch={batch} {height}x{width}: "
+    log(f"[{tag}] {cfg.name} compute={cfg.compute_dtype} batch={batch} {height}x{width}: "
         f"params + inputs in {time.perf_counter() - t0:.2f} s")
     fwd = make_inference_fn(cfg, test_cfg)
 
@@ -464,7 +487,9 @@ def phase_main_path(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     t0 = time.perf_counter()
     fwd(params, *batch_args)
     sync()
-    log(f"[4 main] warm-up request: {time.perf_counter() - t0:.3f} s")
+    log(f"[{tag}] warm-up request: {time.perf_counter() - t0:.3f} s")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     roi_align_fwd.launches = 0
     times = []
     for _ in range(requests):
@@ -473,37 +498,51 @@ def phase_main_path(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
         sync()
         times.append(time.perf_counter() - t0)
     launches = roi_align_fwd.launches
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else 0.0
     n_valid, n_rois = check_outputs(out, cfg, test_cfg, batch)
     total = sum(times)
-    log(f"[4 main] requests: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms -> "
+    log(f"[{tag}] requests: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms -> "
         f"{batch * requests / total:.2f} img/s on {card or device}; valid rois per image {n_rois}; "
-        f"valid detections per image {n_valid}; kernel launches {launches}")
+        f"valid detections per image {n_valid}; kernel launches {launches}; peak memory "
+        f"{peak:.2f} GiB")
     if device.type == "cuda":
         check(launches == 2 * requests,
               f"RoIAlign kernel launched {launches} times in {requests} requests, expected 2 each")
     return launches, batch * requests / total, params
 
 
-def phase_fp32_parity(device, params, height=HEIGHT, width=WIDTH, cfg=None, test_cfg=None):
-    """One image in fp32: the whole path with the kernel vs the plain RoIAlign."""
+def plain_roi_align(cfg):
+    """The plain RoIAlign of cfg's call sites: the gather form over the FPN
+    pyramid, the separable form (cuBLAS matmuls) over the C4 map."""
+    from detectorch_tpu_torch.ops.roi_align import multilevel_roi_align, roi_align_matmul
+
+    return multilevel_roi_align if cfg.use_fpn else roi_align_matmul
+
+
+def phase_fp32_parity(device, params, height=HEIGHT, width=WIDTH, cfg=None, test_cfg=None,
+                      tag="5 fp32", images=1):
+    """`images` images in fp32: the whole path with the kernel vs the plain
+    RoIAlign."""
     import torch
 
     from detectorch_tpu_torch.config import PRESETS, TestConfig
-    from detectorch_tpu_torch.models import fpn as fpn_mod
-    from detectorch_tpu_torch.models import resnet as resnet_mod
-    from detectorch_tpu_torch.models.detector import make_inference_fn, mask_branch
-    from detectorch_tpu_torch.ops.roi_align import multilevel_roi_align
+    from detectorch_tpu_torch.models.detector import (
+        backbone_features,
+        make_inference_fn,
+        mask_branch,
+    )
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = (cfg or PRESETS[PRESET]).replace(compute_dtype="float32")
     test_cfg = test_cfg or TestConfig()
+    plain = plain_roi_align(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
-    args = _batch(gen, 1, height, width, device)
+    args = _batch(gen, images, height, width, device)
     out_k = make_inference_fn(cfg, test_cfg)(params, *args)
-    out_p = make_inference_fn(cfg, test_cfg, roi_align=multilevel_roi_align)(params, *args)
-    check_outputs(out_k, cfg, test_cfg, 1)
+    out_p = make_inference_fn(cfg, test_cfg, roi_align=plain)(params, *args)
+    check_outputs(out_k, cfg, test_cfg, images)
     check(torch.equal(out_k.rois, out_p.rois) and torch.equal(out_k.roi_valid, out_p.roi_valid),
           "rois differ between kernel and plain runs")
     cls_err = (out_k.cls_scores - out_p.cls_scores).abs().max().item()
@@ -511,15 +550,13 @@ def phase_fp32_parity(device, params, height=HEIGHT, width=WIDTH, cfg=None, test
     # masks of the same detections through both RoIAlign versions (the
     # detection top-K of random weights sits on near-ties)
     with torch.inference_mode():
-        feats = resnet_mod.multilevel_body(params, args[0], cfg.arch)
-        pyramid = fpn_mod.fpn_neck(params, feats, cfg.arch)
+        feats = backbone_features(params, cfg, args[0])
         d = out_k.detections
-        masks_p = mask_branch(params, cfg, pyramid, d.boxes, d.classes, args[1],
-                              roi_align=multilevel_roi_align)
+        masks_p = mask_branch(params, cfg, feats, d.boxes, d.classes, args[1], roi_align=plain)
     mask_err = (out_k.masks - masks_p).abs().max().item()
     same_dets = torch.equal(out_k.detections.classes, out_p.detections.classes) \
         and torch.equal(out_k.detections.valid, out_p.detections.valid)
-    log(f"[5 fp32] 1 image, kernel vs plain RoIAlign: rois equal; "
+    log(f"[{tag}] {images} image(s), kernel vs plain RoIAlign: rois equal; "
         f"max|d cls_scores| {cls_err:.3g} (tol {CLS_ATOL:g}), "
         f"max|d bbox_deltas| {delta_err:.3g} (tol {DELTA_ATOL:g}), "
         f"max|d masks| {mask_err:.3g} (tol {MASK_ATOL:g}); "
@@ -699,7 +736,8 @@ def make_train_batch(rng, batch, height, width, num_classes, rois_per_image, mas
 
 
 def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
-                rois_per_image=TRAIN_ROIS, mask_rows=TRAIN_MASK_ROWS, card=""):
+                rois_per_image=TRAIN_ROIS, mask_rows=TRAIN_MASK_ROWS, card="", tag="7 train",
+                params=None):
     """The training path through both kernels; returns the launch counts
     of the three timed steps and the step rate."""
     import numpy as np
@@ -714,12 +752,13 @@ def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
 
     cfg = cfg or PRESETS[PRESET]
     t0 = time.perf_counter()
-    params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
+    if params is None:
+        params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
     # random weights on one fixed batch: at the schedule's LR (0.01) the
     # class loss swings over the first steps; 1e-4 makes it fall steadily
     solver = SolverConfig(base_lr=1e-4, warmup_iters=0)
     init_state, make_step = make_train_step(cfg, solver, train_mask=True,
-                                            roi_align_impl="pallas-slab")
+                                            roi_align_impl=roi_align_impl(cfg))
     state, opt = init_state(params)
     del params
     step = make_step(opt)
@@ -729,7 +768,7 @@ def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     gen.manual_seed(4)
     fixed["image"] = torch.randn((batch, height, width, 3), generator=gen, device=device) * 50.0
     n_fg = int((fixed["labels"] > 0).sum())
-    log(f"[7 train] {cfg.name} compute={cfg.compute_dtype} batch={batch} {height}x{width}, "
+    log(f"[{tag}] {cfg.name} compute={cfg.compute_dtype} batch={batch} {height}x{width}, "
         f"{rois_per_image} rois ({n_fg} fg in all) and {mask_rows} mask rows per image: "
         f"params + batch in {time.perf_counter() - t0:.2f} s")
 
@@ -747,7 +786,7 @@ def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
 
     t0 = time.perf_counter()
     losses = [run()["loss"]]
-    log(f"[7 train] warm-up step: {time.perf_counter() - t0:.3f} s")
+    log(f"[{tag}] warm-up step: {time.perf_counter() - t0:.3f} s")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     roi_align_fwd.launches = roi_align_bwd.launches = 0
@@ -782,18 +821,56 @@ def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     check(all(np.isfinite(v) for v in last.values()), f"non-finite metrics {last}")
     losses.append(last["loss"])
     rate = batch * len(times) / sum(times)
-    log(f"[7 train] steps: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms -> "
+    log(f"[{tag}] steps: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms -> "
         f"{sum(times) / len(times) * 1e3:.1f} ms/step, {rate:.2f} img/s on {card or device}; "
         f"peak memory {peak:.2f} GiB; kernel launches in 3 steps {launches}")
-    log(f"[7 train] step 5 in stages: forward {stages[0] * 1e3:.1f} ms, backward "
+    log(f"[{tag}] step 5 in stages: forward {stages[0] * 1e3:.1f} ms, backward "
         f"{stages[1] * 1e3:.1f} ms, optimizer {stages[2] * 1e3:.1f} ms")
-    log(f"[7 train] loss over 5 steps on one batch: {', '.join(f'{v:.4f}' for v in losses)}; "
+    log(f"[{tag}] loss over 5 steps on one batch: {', '.join(f'{v:.4f}' for v in losses)}; "
         f"step 5 {', '.join(f'{k} {v:.4f}' for k, v in last.items())}")
     if device.type == "cuda":
         check(launches == {"roi_align_fwd": 6, "roi_align_bwd": 6},
               f"kernel launches {launches} in 3 steps, expected 2 forward + 2 backward each")
     check(losses[-1] < losses[0], f"loss did not fall over 5 steps: {losses}")
+    if not cfg.use_fpn:
+        crowd = most_rois_on_a_tile(cfg, batch, height, width, fixed["rois"],
+                                    [(rois_per_image, cfg.roi_size),
+                                     (mask_rows, cfg.mask.roi_size)])
+        log(f"[{tag}] most rois on one backward tile: {crowd[0]} (box, {cfg.roi_size}x"
+            f"{cfg.roi_size}), {crowd[1]} (mask rows, {cfg.mask.roi_size}x{cfg.mask.roi_size})")
     return launches, rate
+
+
+def roi_align_impl(cfg):
+    """JAX's RoIAlign name for cfg's training: the Pallas names are the FPN
+    path; C4 trains with 'gather'. Every name runs the port's kernels."""
+    return "pallas-slab" if cfg.use_fpn else "gather"
+
+
+def most_rois_on_a_tile(cfg, batch, height, width, rois, branches):
+    """The longest per-tile roi list of the backward kernel for each
+    (rows, pooled) branch over the first `rows` rois of each image."""
+    import torch
+
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_tile_lists
+    from detectorch_tpu_torch.ops.fpn_levels import map_rois_to_fpn_levels
+
+    if cfg.use_fpn:
+        shapes = [(batch, height // s, width // s, cfg.fpn.channels) for s in (4, 8, 16, 32)]
+        scales, sampling_ratio = cfg.fpn_spatial_scales, cfg.roi_sampling_ratio
+    else:
+        shapes = [(batch, height // 16, width // 16, 1024)]
+        scales, sampling_ratio = (cfg.spatial_scale,), cfg.roi_sampling_ratio
+    crowd = []
+    for rows, pooled in branches:
+        r = rois[:, :rows].reshape(-1, 4).float().contiguous()
+        levels = ((map_rois_to_fpn_levels(r) - 2) if cfg.use_fpn
+                  else torch.zeros(len(r), dtype=torch.int64, device=r.device))
+        bidx = torch.arange(batch, dtype=torch.int32, device=r.device).repeat_interleave(rows)
+        starts, _ = roi_tile_lists(shapes, r, bidx, levels.to(torch.int32), scales, pooled,
+                                   pooled, sampling_ratio)
+        crowd.append(int((starts[1:] - starts[:-1]).max()))
+    return crowd
 
 
 def compare_grads(got, other):
@@ -817,31 +894,49 @@ def compare_grads(got, other):
     return worst_rel, worst_rest, worst_cos
 
 
+def fused_variants(cfg):
+    """The differentiable RoIAlign of cfg's training through the kernels (K),
+    through the kernel forward and the plain backward (KP), and through both
+    plain versions (P)."""
+    import functools
+
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_c4, roi_align_fwd
+    from detectorch_tpu_torch.ops.roi_align import (
+        multilevel_roi_align,
+        multilevel_roi_align_backward,
+        roi_align_matmul,
+        roi_align_matmul_backward,
+    )
+    from detectorch_tpu_torch.ops.roi_align_fused import roi_align_c4_fused, roi_align_fused
+
+    if cfg.use_fpn:
+        fused, kfwd, pfwd, pbwd = (roi_align_fused, roi_align_fwd, multilevel_roi_align,
+                                   multilevel_roi_align_backward)
+    else:
+        fused, kfwd, pfwd, pbwd = (roi_align_c4_fused, roi_align_c4, roi_align_matmul,
+                                   roi_align_matmul_backward)
+    return (fused, functools.partial(fused, fwd=kfwd, bwd=pbwd),
+            functools.partial(fused, fwd=pfwd, bwd=pbwd))
+
+
 def phase_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, rois_per_image=TRAIN_ROIS,
-                     mask_rows=TRAIN_MASK_ROWS):
+                     mask_rows=TRAIN_MASK_ROWS, tag="8 fp32 grads", params=None):
     """One image of the fp32 training step: gradients through the kernels
     (K), through the kernel forward and the plain backward (KP), and through
     both plain versions (P)."""
-    import functools
-
     import numpy as np
     import torch
 
     from detectorch_tpu_torch.config import PRESETS, SolverConfig
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.models.detector import init_params
-    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
-    from detectorch_tpu_torch.ops.roi_align import (
-        multilevel_roi_align,
-        multilevel_roi_align_backward,
-    )
-    from detectorch_tpu_torch.ops.roi_align_fused import roi_align_fused
     from detectorch_tpu_torch.train.train_step import box_branch_loss, make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = (cfg or PRESETS[PRESET]).replace(compute_dtype="float32")
-    params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
+    if params is None:
+        params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
     b = make_train_batch(np.random.RandomState(5), 1, height, width, cfg.num_classes,
                          rois_per_image, mask_rows, cfg.mask.resolution, device)
     gen = torch.Generator(device=device)
@@ -859,16 +954,15 @@ def phase_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, rois_per_imag
         return float(total.detach().sum()), {k: v.grad for k, v in state.params.items()
                                     if v.grad is not None}
 
-    loss_k, g_k = grads(roi_align_fused)
-    loss_kp, g_kp = grads(functools.partial(roi_align_fused, fwd=roi_align_fwd,
-                                            bwd=multilevel_roi_align_backward))
-    loss_p, g_p = grads(functools.partial(roi_align_fused, fwd=multilevel_roi_align,
-                                          bwd=multilevel_roi_align_backward))
+    k, kp, p = fused_variants(cfg)
+    loss_k, g_k = grads(k)
+    loss_kp, g_kp = grads(kp)
+    loss_p, g_p = grads(p)
     check(g_k.keys() == g_kp.keys() == g_p.keys(), "different leaves received gradients")
 
     rel_kp, _, cos_kp = compare_grads(g_k, g_kp)
     rel_p, rest_p, cos_p = compare_grads(g_k, g_p)
-    log(f"[8 fp32 grads] 1 image, {len(g_k)} trainable leaves with gradients; loss "
+    log(f"[{tag}] 1 image, {len(g_k)} trainable leaves with gradients; loss "
         f"kernels {loss_k:.6f}, plain {loss_p:.6f}; kernel fwd+bwd vs kernel fwd + plain bwd: "
         f"worst leaf max|d| / max|g| {rel_kp:.3g} (tol {GRAD_REL:g}), min cosine {cos_kp:.8f}; "
         f"vs plain fwd+bwd: worst {rel_p:.3g} (tol {FLIP_REL:g}), worst outside each leaf's "
@@ -921,15 +1015,19 @@ def make_eval_set(root, images, rng, num_categories=80):
     return ann, pics
 
 
-def compare_results(a, b):
+def compare_results(a, b, tie=0.0):
     """tests/test_engine.py's comparison of two engines' COCO results: per
     image the same number of detections; in score order the same classes,
-    boxes within rtol 1e-4 / atol 1e-3, and equal mask RLEs. Returns the
-    counts of what differs and the largest box difference."""
+    boxes within rtol 1e-4 / atol 1e-3, and equal mask RLEs. With `tie` > 0,
+    a detection of `a` may pair with any unpaired one of `b` of its image
+    whose score lies within `tie` of its own (the same class and box, or
+    RLE, first): near-tied scores may come out of the two engines in either
+    order. Returns the counts of what differs, the largest box difference
+    and the number of pairs that were not in the same place."""
     import numpy as np
 
     diff = {"images": 0, "classes": 0, "boxes": 0, "masks": 0}
-    max_box = 0.0
+    max_box, moved = 0.0, 0
     for key in ("bbox", "segm"):
         ra = sorted(a[key], key=lambda r: (r["image_id"], -r["score"]))
         rb = sorted(b[key], key=lambda r: (r["image_id"], -r["score"]))
@@ -937,7 +1035,25 @@ def compare_results(a, b):
         if ids_a != ids_b:
             diff["images"] += 1
             continue
-        for x, y in zip(ra, rb):
+
+        def same(x, y):
+            if x["category_id"] != y["category_id"]:
+                return False
+            if key == "bbox":
+                return np.allclose(x["bbox"], y["bbox"], rtol=1e-4, atol=1e-3)
+            return x["segmentation"] == y["segmentation"]
+
+        used = [False] * len(rb)
+        for i, x in enumerate(ra):
+            j = i
+            if tie > 0 and (used[i] or not same(x, rb[i])):
+                near = [k for k, y in enumerate(rb) if not used[k] and y["image_id"] ==
+                        x["image_id"] and abs(y["score"] - x["score"]) <= tie]
+                match = [k for k in near if same(x, rb[k])]
+                j = (match or near or [i])[0]
+                moved += j != i
+            used[j] = True
+            y = rb[j]
             diff["classes"] += x["category_id"] != y["category_id"]
             if key == "bbox":
                 d = np.abs(np.subtract(x["bbox"], y["bbox"]))
@@ -945,11 +1061,11 @@ def compare_results(a, b):
                 diff["boxes"] += not np.allclose(x["bbox"], y["bbox"], rtol=1e-4, atol=1e-3)
             else:
                 diff["masks"] += x["segmentation"] != y["segmentation"]
-    return diff, max_box
+    return diff, max_box, moved
 
 
 def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
-               parity_images=PARITY_IMAGES, card=""):
+               parity_images=PARITY_IMAGES, card="", tag="9 eval", weights=None, tie=0.0):
     """COCO evaluation through the port's entry points; returns the forward
     kernel's launch count in the timed run."""
     import collections
@@ -976,13 +1092,13 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
         t0 = time.perf_counter()
         ann, pics = make_eval_set(root, images, np.random.RandomState(7))
         pkl = os.path.join(root, "model_final.pkl")
-        c2.save_caffe2_pkl(params_from_jax(init_params(cfg, seed=0)), cfg, pkl)
+        c2.save_caffe2_pkl(params_from_jax(weights or init_params(cfg, seed=0)), cfg, pkl)
         params = c2.fold_bn(c2.import_params(c2.load_caffe2_pkl(pkl), cfg))
         ds = CocoDataset(ann, root)
         roidb = ds.get_roidb(gt=False)
         shapes = {e.image_id: (e.height, e.width) for e in roidb}
         what = ", ".join(f"{c} at {h}x{w}" for h, w, c in images)
-        log(f"[9 eval] {len(roidb)} images ({what}), {len(ds.coco.anns)} gt objects; "
+        log(f"[{tag}] {len(roidb)} images ({what}), {len(ds.coco.anns)} gt objects; "
             f"Detectron pkl of {os.path.getsize(pkl) / 2 ** 20:.1f} MiB written and read back; "
             f"set-up {time.perf_counter() - t0:.2f} s")
 
@@ -997,7 +1113,7 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
         firsts = list({(e.height, e.width): e for e in reversed(roidb)}.values())
         t0 = time.perf_counter()
         run(roidb=firsts)
-        log(f"[9 eval] warm-up over {len(firsts)} short batches: {time.perf_counter() - t0:.2f} s")
+        log(f"[{tag}] warm-up over {len(firsts)} short batches: {time.perf_counter() - t0:.2f} s")
         roi_align_fwd.launches = 0
         t0 = time.perf_counter()
         bbox_stats, segm_stats, info = run(roidb=roidb)
@@ -1007,7 +1123,7 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
         n_batches = sum(math.ceil(c / batch) for _, _, c in images)
         per_image = collections.Counter(r["image_id"] for r in info["bbox"])
         split = " ".join(f"{k}={v:.3f}s" for k, v in info["phase_seconds"].items())
-        log(f"[9 eval] {cfg.name} compute={cfg.compute_dtype} batch={batch}, device "
+        log(f"[{tag}] {cfg.name} compute={cfg.compute_dtype} batch={batch}, device "
             f"preprocess: {info['images_per_sec']:.2f} img/s end to end on {card or device} "
             f"(loop split: {split}); evaluate_dataset {wall:.2f} s with COCOeval; kernel "
             f"launches {launches} in {n_batches} batches")
@@ -1020,7 +1136,7 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
         for name, stats in (("bbox", bbox_stats), ("segm", segm_stats)):
             check(stats is not None and len(stats) == 12 and bool(np.isfinite(stats).all()),
                   f"COCOeval {name} stats are not 12 finite numbers: {stats}")
-        log(f"[9 eval] detections per image {min(per_image.values())}-{max(per_image.values())}; "
+        log(f"[{tag}] detections per image {min(per_image.values())}-{max(per_image.values())}; "
             f"{len(info['segm'])} masks, each of its image's size; 12 + 12 finite COCOeval "
             f"stats, bbox AP {bbox_stats[0]:.4f}, segm AP {segm_stats[0]:.4f} (random weights)")
         if device.type == "cuda":
@@ -1043,11 +1159,12 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
             device=device)
         _, _, single = run32(batch_size=1)
         _, _, batched = run32(batch_size=parity_images)
-        diff, max_box = compare_results(single, batched)
+        diff, max_box, moved = compare_results(single, batched, tie)
         counts = sorted(collections.Counter(r["image_id"] for r in single["bbox"]).items())
-        log(f"[9 eval] fp32 parity, first {parity_images} images, batched (batch "
+        log(f"[{tag}] fp32 parity, first {parity_images} images, batched (batch "
             f"{parity_images}) vs single-image engine: detections per image {counts}; "
-            f"differences {diff}; max|d box| {max_box:.3g} (rtol 1e-4, atol 1e-3)")
+            f"differences {diff}; max|d box| {max_box:.3g} (rtol 1e-4, atol 1e-3)"
+            + (f"; {moved} pairs of scores within {tie:g} in the other order" if tie else ""))
         check(not any(diff.values()), f"batched and single-image results differ: {diff}")
     return launches
 
@@ -1142,7 +1259,8 @@ def profile_step(run, device, top=8):
 
 def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZES,
                     target_size=800, max_size=1333, rois_per_image=TRAIN_ROIS, pre=TRAIN_PRE,
-                    post=TRAIN_POST, gt_range=(3, 20), card=""):
+                    post=TRAIN_POST, gt_range=(3, 20), card="", tag="10 e2e", params=None,
+                    profiled=True):
     """The e2e Mask R-CNN step through both kernels, in the uint8 schema;
     returns the launch counts of the three timed steps and the step rate."""
     import numpy as np
@@ -1151,12 +1269,7 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.config import PRESETS, SamplerConfig, SolverConfig
     from detectorch_tpu_torch.models.detector import init_params
-    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import (
-        roi_align_bwd,
-        roi_align_fwd,
-        roi_tile_lists,
-    )
-    from detectorch_tpu_torch.ops.fpn_levels import map_rois_to_fpn_levels
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
     from detectorch_tpu_torch.train.e2e import e2e_losses, make_e2e_train_step, torch_uniforms
     from detectorch_tpu_torch.train.solver import apply_update
     from detectorch_tpu_torch.train.train_step import device_images
@@ -1164,20 +1277,21 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
     cfg = cfg or PRESETS[PRESET]
     batch = len(sizes)
     t0 = time.perf_counter()
-    params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
+    if params is None:
+        params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
     # random weights on one fixed batch: as in phase 7, 1e-4 makes the loss fall
     solver = SolverConfig(base_lr=1e-4, warmup_iters=0)
     sampler = SamplerConfig(rois_per_image=rois_per_image)
     init_state, make_step = make_e2e_train_step(
         cfg, solver, sampler, seed=0, train_pre_nms=pre, train_post_nms=post, train_mask=True,
-        device_input=True, blob_hw=(height, width), roi_align_impl="pallas-slab")
+        device_input=True, blob_hw=(height, width), roi_align_impl=roi_align_impl(cfg))
     state, opt = init_state(params)
     del params
     step = make_step(opt)
     fixed = make_e2e_batch(np.random.RandomState(10), sizes, (height, width), target_size,
                            max_size, gt_range, device)
     n_gt = fixed["gt_valid"].sum(dim=1).tolist()
-    log(f"[10 e2e] {cfg.name} compute={cfg.compute_dtype} batch={batch} in {height}x{width}, "
+    log(f"[{tag}] {cfg.name} compute={cfg.compute_dtype} batch={batch} in {height}x{width}, "
         f"uint8 input (raw {tuple(fixed['raw'].shape[1:3])}), gts per image {n_gt} of "
         f"{fixed['gt_valid'].shape[1]} slots, RPN {pre} -> {post} per level, {rois_per_image} "
         f"rois per image: params + batch in {time.perf_counter() - t0:.2f} s")
@@ -1196,7 +1310,7 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
 
     t0 = time.perf_counter()
     losses = [run()["loss"]]
-    log(f"[10 e2e] warm-up step: {time.perf_counter() - t0:.3f} s")
+    log(f"[{tag}] warm-up step: {time.perf_counter() - t0:.3f} s")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     roi_align_fwd.launches = roi_align_bwd.launches = 0
@@ -1239,34 +1353,27 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
 
     # how the sampled rois crowd the backward kernel's tiles
     fg_rows = int(round(sampler.fg_fraction * rois_per_image))
-    shapes = [(batch, height // s, width // s, cfg.fpn.channels) for s in (4, 8, 16, 32)]
-    crowd = []
-    for rows, pooled in ((rois_per_image, cfg.roi_size), (fg_rows, cfg.mask.roi_size)):
-        rois = sampled.rois[:, :rows].reshape(-1, 4).float().contiguous()
-        levels = (map_rois_to_fpn_levels(rois) - 2).to(torch.int32).contiguous()
-        bidx = torch.arange(batch, dtype=torch.int32, device=device).repeat_interleave(rows)
-        starts, _ = roi_tile_lists(shapes, rois, bidx, levels, cfg.fpn_spatial_scales, pooled,
-                                   pooled)
-        crowd.append(int((starts[1:] - starts[:-1]).max()))
+    crowd = most_rois_on_a_tile(cfg, batch, height, width, sampled.rois,
+                                [(rois_per_image, cfg.roi_size), (fg_rows, cfg.mask.roi_size)])
     n_fg = (sampled.labels > 0).sum(dim=1).tolist()
 
-    profile = profile_step(run, device) if device.type == "cuda" else None
+    profile = profile_step(run, device) if device.type == "cuda" and profiled else None
 
     rate = batch * len(times) / sum(times)
-    log(f"[10 e2e] steps: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms -> "
+    log(f"[{tag}] steps: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms -> "
         f"{sum(times) / len(times) * 1e3:.1f} ms/step, {rate:.2f} img/s on {card or device}; "
         f"peak memory {peak:.2f} GiB; kernel launches in 3 steps {launches}")
-    log(f"[10 e2e] step 5 in stages (ms): "
+    log(f"[{tag}] step 5 in stages (ms): "
         + ", ".join(f"{name} {ms:.1f}" for name, ms in stages)
         + f"; total {sum(ms for _, ms in stages):.1f}")
-    log(f"[10 e2e] step 5 sample: fg rois per image {n_fg}, valid rois per image "
+    log(f"[{tag}] step 5 sample: fg rois per image {n_fg}, valid rois per image "
         f"{sampled.valid.sum(dim=1).tolist()}; most rois on one backward tile: {crowd[0]} (box, "
         f"{cfg.roi_size}x{cfg.roi_size}), {crowd[1]} (mask rows, "
         f"{cfg.mask.roi_size}x{cfg.mask.roi_size})")
-    log(f"[10 e2e] loss over 5 steps on one batch: {', '.join(f'{v:.4f}' for v in losses)}; "
+    log(f"[{tag}] loss over 5 steps on one batch: {', '.join(f'{v:.4f}' for v in losses)}; "
         f"step 5 {', '.join(f'{k} {v:.4f}' for k, v in last.items())}")
     if profile:
-        log(f"[10 e2e] step 6 under torch.profiler: {profile['wall_ms']:.1f} ms, device busy "
+        log(f"[{tag}] step 6 under torch.profiler: {profile['wall_ms']:.1f} ms, device busy "
             f"{profile['busy_ms']:.1f} ms, idle share {profile['idle_share']:.3f}; "
             f"{profile['syncs']} cudaStreamSynchronize calls; most device time: "
             + ", ".join(f"{name} {ms:.2f} ms" for name, ms in profile["top"]))
@@ -1354,6 +1461,275 @@ def phase_e2e_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E
           f"gradients through the kernels differ from the plain versions: {rel_p}, {cos_p}")
 
 
+# --- the C4 family: e2e_mask_rcnn_R-50-C4_2x -------------------------------
+
+C4_PRESET = "e2e_mask_rcnn_R-50-C4_2x"
+R101_PRESET = "e2e_mask_rcnn_R-101-FPN_2x"
+C4_SCALE = 1.0 / 16
+C4_FWD_REL = 1e-5  # kernel vs the plain separable form: 1e-5 of max|plain|
+
+
+def c4_weights(cfg, seed=0):
+    """init_params with the stem's frozen BN scale (res_conv1_bn_s) times
+    0.01. The random C4 trunk has no FPN neck to bound it and reaches ~1e3
+    on images (res5 features ~8e2, RPN deltas ~16), where every softmax
+    saturates on one class (so score_thresh 0 leaves fewer than 100
+    detections) and one SGD step at the clip's bound moves the logits by
+    ~1e2; at 0.01 the c4 map is ~10, the magnitude a trained model gives.
+    JAX-layout numpy, as init_params gives."""
+    from detectorch_tpu_torch.models.detector import init_params
+
+    p = init_params(cfg, seed=seed)
+    p["res_conv1_bn_s"] = p["res_conv1_bn_s"] * 0.01
+    return p
+
+
+def c4_work(rois, pooled, channels, height, width, sampling_ratio=0, max_grid=8):
+    """The least operations of a C4 RoIAlign call over (B, N, 4) rois, as
+    the separable form needs them on this run's rois: per roi, each of its
+    distinct feature rows interpolated along x for every bin column
+    (sum_pw nx(pw) * rows), then every bin summed over its rows (PW *
+    sum_ph ny(ph)), an FMA per channel each; nx and ny are the columns and
+    rows whose weight is not zero (ops/roi_align.separable_weights)."""
+    from detectorch_tpu_torch.ops.roi_align import separable_weights
+
+    ky, kx = separable_weights(rois.reshape(-1, 4).float(), C4_SCALE, pooled, pooled,
+                               sampling_ratio, max_grid, height, width)
+    ny = (ky != 0).sum(dim=2).double()           # (R, PH)
+    nx = (kx != 0).sum(dim=2).double()           # (R, PW)
+    rows = (ky != 0).any(dim=1).sum(dim=1).double()
+    per_roi = nx.sum(dim=1) * rows + pooled * ny.sum(dim=1)
+    return 2.0 * channels * float(per_roi.sum())
+
+
+def c4_fwd_bound(feats, rois, pooled):
+    """The C4 forward's least time: the feature map read once (counted from
+    shapes), rois read, the fp32 output written, or its operations."""
+    b, h, w, c = feats.shape
+    r = rois.shape[0] * rois.shape[1]
+    nbytes = feats.numel() * feats.element_size() + 16 * r + r * pooled * pooled * c * 4
+    return roofline(nbytes, c4_work(rois, pooled, c, h, w))
+
+
+def c4_bwd_bound(shape, rois, pooled, out_dtype):
+    """The C4 backward's least time: g and rois read once, the gradient map
+    written once, or its operations."""
+    import torch
+
+    b, h, w, c = shape
+    r = rois.shape[0] * rois.shape[1]
+    out = b * h * w * c * torch.empty((), dtype=out_dtype).element_size()
+    return roofline(r * pooled * pooled * c * 4 + 16 * r + out, c4_work(rois, pooled, c, h, w))
+
+
+def phase_c4_kernels(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=1024,
+                     box_rois=BOX_ROIS, mask_rois=MASK_ROIS, train_rois=TRAIN_ROIS,
+                     mask_rows=TRAIN_MASK_ROWS, timing=True):
+    """Both kernels at the C4 call site's shapes (one level at 1/16, 1024
+    channels, sampling_ratio 0 with max_grid 8, 14x14 bins) against the
+    plain separable form on the card, whose time is that of JAX's own
+    formulation (two cuBLAS matmuls per roi chunk, fp32); returns the
+    forward's and the backward's call rows."""
+    import torch
+
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import (
+        roi_align_c4,
+        roi_align_c4_bwd,
+        roi_tile_lists,
+    )
+    from detectorch_tpu_torch.ops.roi_align import roi_align_matmul, roi_align_matmul_backward
+
+    fh, fw = height // 16, width // 16
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    gen_clustered = torch.Generator(device=device)
+    gen_clustered.manual_seed(13)
+    fwd_calls, bwd_calls = [], []
+    max_fwd, max_bwd = 0.0, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        feats = torch.randn((batch, fh, fw, channels), generator=gen, device=device).to(dtype)
+        for n in (box_rois, mask_rois):
+            for kind, make, g in (("random", make_rois, gen),
+                                  ("clustered", make_clustered_rois, gen_clustered)):
+                rois = make(g, batch, n, height, width, device)
+                args = (feats, rois, 14, 14, C4_SCALE, 0)
+                got = roi_align_c4(*args)
+                ref = roi_align_matmul(*args, roi_chunk=64)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                scale = ref.abs().max().item()
+                err = (got - ref).abs().max().item()
+                max_fwd = max(max_fwd, err)
+                msg = (f"[12 c4 kernels] fwd {str(dtype)[6:]:8s} {kind:9s} 14x14 x {batch}x{n} "
+                       f"rois: max|kernel - plain| = {err:.3g} = {err / scale:.3g} of "
+                       f"max|plain| {scale:.3g} (tol {C4_FWD_REL:g})")
+                del got, ref
+                if timing:
+                    ms = cuda_time_ms(lambda: roi_align_c4(*args), iters=10)
+                    plain_ms = cuda_time_ms(lambda: roi_align_matmul(*args, roi_chunk=64),
+                                            iters=2, warmup=1)
+                    bound_ms, bound_by = c4_fwd_bound(feats, rois, 14)
+                    r = batch * n
+                    msg += (f"; kernel {ms:.4f} ms ({ms * 1e3 / r:.4f} us/roi), separable "
+                            f"two-matmul form (cuBLAS, fp32) {plain_ms:.4f} ms; bound "
+                            f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}")
+                    fwd_calls.append({"call": f"C4 {kind} {str(dtype)[6:]} 14x14 {r} rois",
+                                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                      "bound_by": bound_by})
+                log(msg)
+                check(err <= C4_FWD_REL * scale, f"C4 forward kernel disagrees: {err}")
+        del feats
+    shape = (batch, fh, fw, channels)
+    for n, rows_kind in ((train_rois, "box"), (mask_rows, "mask")):
+        for kind, make in (("random", make_rois), ("clustered", make_clustered_rois)):
+            rois = make(gen, batch, n, height, width, device)
+            g = torch.randn((batch, n, 14, 14, channels), generator=gen, device=device)
+            args = (g, shape, rois, 14, 14, C4_SCALE, 0)
+            ref = roi_align_matmul_backward(*args, roi_chunk=64)
+            got = roi_align_c4_bwd(*args)
+            again = roi_align_c4_bwd(*args)
+            got_bf16 = roi_align_c4_bwd(*args, out_dtype=torch.bfloat16)
+            scale = ref.abs().max().item()
+            err = (got - ref).abs().max().item()
+            same = torch.equal(got, again)
+            rounded = got_bf16.dtype == torch.bfloat16 and torch.equal(got_bf16,
+                                                                      got.to(torch.bfloat16))
+            max_bwd = max(max_bwd, err)
+            flat = rois.reshape(-1, 4).contiguous()
+            bidx = torch.arange(batch, dtype=torch.int32, device=device).repeat_interleave(n)
+            starts, _ = roi_tile_lists([shape], flat, bidx, torch.zeros_like(bidx), (C4_SCALE,),
+                                       14, 14, 0)
+            longest = int((starts[1:] - starts[:-1]).max())
+            msg = (f"[12 c4 kernels] bwd {kind:9s} {rows_kind} 14x14 x {batch}x{n} rois: "
+                   f"max|kernel - plain| = {err:.3g} = {err / scale:.3g} of max|plain| "
+                   f"{scale:.3g} (tol {BWD_REL:g}); two launches equal: {same}; bf16 = fp32 "
+                   f"rounded once: {rounded}; most rois on one tile {longest}")
+            del ref, again, got_bf16
+            if timing:
+                for dtype in (torch.bfloat16, torch.float32):
+                    ms = cuda_time_ms(lambda: roi_align_c4_bwd(*args, out_dtype=dtype), iters=10)
+                    plain_ms = cuda_time_ms(lambda: roi_align_matmul_backward(
+                        *args, roi_chunk=64, out_dtype=dtype), iters=2, warmup=1)
+                    bound_ms, bound_by = c4_bwd_bound(shape, rois, 14, dtype)
+                    r = batch * n
+                    msg += (f"; {str(dtype)[6:]} kernel {ms:.4f} ms ({ms * 1e3 / r:.4f} "
+                            f"us/roi), separable form {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+                            f"ms ({bound_by}), share {bound_ms / ms:.3f}")
+                    bwd_calls.append({
+                        "call": f"C4 {kind} {str(dtype)[6:]} out {rows_kind} 14x14 {r} rois",
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "most_rois_on_a_tile": longest})
+            log(msg)
+            check(err <= BWD_REL * scale, f"C4 backward kernel disagrees: {err}")
+            check(same, "two launches of the C4 backward differ")
+            check(rounded, "C4 bf16 gradient is not the fp32 gradient rounded once")
+            del got, g
+    return {"fwd_calls": fwd_calls, "bwd_calls": bwd_calls, "fwd_err": max_fwd,
+            "bwd_err": max_bwd}
+
+
+def phase_c4_stages(device, params, cfg, batch=BATCH, height=HEIGHT, width=WIDTH,
+                    test_cfg=None):
+    """One C4 request split by stage, a synchronise after each: c4 body,
+    RPN + proposal NMS, box RoIAlign, res5 box head + predictors,
+    postprocess, mask branch."""
+    import torch
+
+    from detectorch_tpu_torch.config import TestConfig
+    from detectorch_tpu_torch.eval.postprocess import postprocess_detections
+    from detectorch_tpu_torch.models import heads as heads_mod
+    from detectorch_tpu_torch.models.detector import (
+        backbone_features,
+        blob_bounds,
+        box_head,
+        compute_dtype,
+        mask_branch,
+        roi_features,
+        rpn_proposals,
+    )
+
+    test_cfg = test_cfg or TestConfig()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    images, scale, orig_h, orig_w = _batch(gen, batch, height, width, device)
+    marks = []
+
+    def mark(name):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        marks.append((name, time.perf_counter()))
+
+    with torch.inference_mode():
+        mark("start")
+        c4 = backbone_features(params, cfg, images)
+        mark("c4 body")
+        im_h, im_w = blob_bounds(cfg, images.shape[1:3], scale, orig_h, orig_w)
+        props = rpn_proposals(params, cfg, c4, im_h, im_w, scale, {})
+        mark("rpn + proposal nms")
+        n = props.boxes.shape[1]
+        feats = roi_features(cfg, c4, props.boxes, cfg.roi_size)
+        mark("box roialign")
+        box = box_head(params, cfg, feats.reshape(batch * n, *feats.shape[2:]))
+        del feats
+        cls, deltas = heads_mod.box_predictors(params, box, dtype=compute_dtype(cfg))
+        mark("res5 box head")
+        dets = postprocess_detections(cls.reshape(batch, n, -1), deltas.reshape(batch, n, -1),
+                                      props.boxes, props.valid, scale, orig_h, orig_w,
+                                      test_cfg, cfg.num_classes)
+        mark("postprocess")
+        mask_branch(params, cfg, c4, dets.boxes, dets.classes, scale)
+        mark("mask branch")
+    return [(name, (t - marks[i][1]) * 1e3) for i, (name, t) in enumerate(marks[1:])]
+
+
+def phase_c4(device, smi):
+    """Phases 12-16, the C4 family (e2e_mask_rcnn_R-50-C4_2x, bf16, batch 8,
+    832x1344, full width and depth) and R-101-FPN inference; returns the
+    kernels' C4 rows and the launch counts of each C4 path's timed run."""
+    import torch
+
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
+    from detectorch_tpu_torch.config import PRESETS
+
+    cfg = PRESETS[C4_PRESET]
+    kernels = phase_c4_kernels(device)
+
+    def params():
+        return params_to_device(params_from_jax(c4_weights(cfg)), device)
+
+    launches = {}
+    c4_params = params()
+    infer, _, _ = phase_main_path(device, cfg=cfg, card=smi, tag="13 c4 main", params=c4_params)
+    launches["c4_inference"] = {"roi_align_fwd": infer, "roi_align_bwd": 0}
+    stages = phase_c4_stages(device, c4_params, cfg)
+    log("[13 c4 main] request in stages (ms): "
+        + ", ".join(f"{name} {ms:.1f}" for name, ms in stages)
+        + f"; total {sum(ms for _, ms in stages):.1f}")
+    phase_fp32_parity(device, c4_params, cfg=cfg, tag="13 c4 fp32", images=2)
+    del c4_params
+    r101, _, _ = phase_main_path(device, cfg=PRESETS[R101_PRESET], card=smi, requests=2,
+                                 tag="13 r101 main")
+    launches["r101_inference"] = {"roi_align_fwd": r101, "roi_align_bwd": 0}
+    torch.cuda.empty_cache()
+    # the res5 head of c4_weights scores every class near 1/81: scores of one
+    # class tie within fp32 rounding, which batch and single engines order
+    # either way
+    evals = phase_eval(device, cfg=cfg, card=smi, tag="14 c4 eval", weights=c4_weights(cfg),
+                       tie=1e-5)
+    launches["c4_eval"] = {"roi_align_fwd": evals, "roi_align_bwd": 0}
+    torch.cuda.empty_cache()
+    launches["c4_training"], _ = phase_train(device, cfg=cfg, card=smi, tag="15 c4 train",
+                                             params=params())
+    torch.cuda.empty_cache()
+    launches["c4_e2e_training"], _ = phase_e2e_train(device, cfg=cfg, card=smi,
+                                                     tag="15 c4 e2e", params=params(),
+                                                     profiled=False)
+    torch.cuda.empty_cache()
+    phase_fp32_grads(device, cfg=cfg, tag="16 c4 fp32 grads", params=params())
+    torch.cuda.empty_cache()
+    return {"kernels": kernels, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1380,6 +1756,7 @@ def main() -> int:
     eval_launches = phase_eval(device, card=smi)
     e2e_launches, _ = phase_e2e_train(device, card=smi)
     phase_e2e_fp32_grads(device)
+    c4 = phase_c4(device, smi)
     source = "detectorch_tpu_torch/csrc"
     replaces = "detectorch_tpu/ops/pallas/roi_align_kernel.py"
     kernels = [{
@@ -1391,14 +1768,16 @@ def main() -> int:
         "launches_by_path": {"inference": infer_launches,
                              "training": train_launches["roi_align_fwd"],
                              "eval": eval_launches,
-                             "e2e_training": e2e_launches["roi_align_fwd"]},
+                             "e2e_training": e2e_launches["roi_align_fwd"],
+                             **{k: v["roi_align_fwd"] for k, v in c4["launches"].items()}},
         "max_abs_err": summary["max_abs_err"],
+        "c4_max_abs_err": c4["kernels"]["fwd_err"],
         "ms": summary["ms"],
         "plain_ms": summary["plain_ms"],
         "bound_ms": summary["bound_ms"],
         "bound_by": summary["bound_by"],
         "library_ms": None,  # no PyTorch call computes caffe2 RoIAlign
-        "calls": summary["calls"],
+        "calls": summary["calls"] + c4["kernels"]["fwd_calls"],
     }, {
         "name": "roi_align_bwd",
         "route": "cuda",
@@ -1406,14 +1785,17 @@ def main() -> int:
         "replaces": f"{replaces}:489",
         "launches": e2e_launches["roi_align_bwd"],
         "launches_by_path": {"training": train_launches["roi_align_bwd"],
-                             "e2e_training": e2e_launches["roi_align_bwd"]},
+                             "e2e_training": e2e_launches["roi_align_bwd"],
+                             **{k: v["roi_align_bwd"] for k, v in c4["launches"].items()
+                                if "training" in k}},
         "max_abs_err": bwd_summary["max_abs_err"],
+        "c4_max_abs_err": c4["kernels"]["bwd_err"],
         "ms": bwd_summary["ms"],
         "plain_ms": bwd_summary["plain_ms"],
         "bound_ms": bwd_summary["bound_ms"],
         "bound_by": bwd_summary["bound_by"],
         "library_ms": None,  # nor its feature gradient
-        "calls": bwd_summary["calls"],
+        "calls": bwd_summary["calls"] + c4["kernels"]["bwd_calls"],
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))

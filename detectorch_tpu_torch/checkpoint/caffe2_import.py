@@ -15,6 +15,10 @@ port keeps PyTorch's layouts, which are closer to caffe2's than JAX's:
   * BN: caffe2 exports affine-only ``_bn_s``/``_bn_b``; ``fold_bn`` folds
     them into the preceding conv for inference.
 
+The C4 presets' blobs need nothing more: their heads are res5 (the
+backbone's own ``res5_*`` blobs), the RPN's ``conv_rpn``/``rpn_*`` carry no
+``_fpn2`` suffix, ``conv5_mask_w`` is (2048, 256, 2, 2), and there is no fc6.
+
 Every function returns CPU tensors in the port's layout (those of
 ``checkpoint.convert.params_from_jax``), float32.
 """

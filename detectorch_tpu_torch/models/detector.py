@@ -1,16 +1,23 @@
 """Detector assembly: images -> padded detections + masks, batched, eager.
 
-Port of the FPN path of ``detectorch_tpu/models/detector.py``
-(``make_inference_fn`` with the RPN or with precomputed proposals, and
-``make_mask_fn``), with the batch written out where the JAX package vmaps a
+Port of ``detectorch_tpu/models/detector.py`` (``make_inference_fn`` with the
+RPN or with precomputed proposals, and ``make_mask_fn``), for the FPN and the
+C4 families, with the batch written out where the JAX package vmaps a
 per-image program (``parallel/mesh.make_batched_inference_fn``).
 Every stage keeps the JAX package's fixed shapes — padded proposal, roi and
 detection slots with validity masks — and computes on padded and invalid
 slots too, so shapes and kernel launches do not depend on the data.
 
-RoIAlign is exact for every roi (``ops/cuda/roi_align_kernel``), so
-``roi_align_exact`` is always True and the JAX engine's exact rerun has no
-counterpart here.
+FPN: ResNet -> FPN neck -> shared RPN head on P2..P6 -> per-level NMS and
+collect -> RoIAlign 7x7 over the pyramid -> fc6/fc7; mask head '1up4convs'.
+C4: ResNet conv1..res4 -> RPN head on c4 (15 anchors) -> one NMS ->
+RoIAlign 14x14 at 1/16 with the adaptive grid -> res5 + mean; mask head
+'upshare' (res5 again, then conv5_mask). Both RoIAlign forms run the same
+CUDA kernel (``ops/cuda/roi_align_kernel``): the pyramid with one level per
+roi, C4 with its one level.
+
+RoIAlign is exact for every roi, so ``roi_align_exact`` is always True and
+the JAX engine's exact rerun has no counterpart here.
 """
 
 from __future__ import annotations
@@ -26,11 +33,13 @@ from detectorch_tpu_torch.models import fpn as fpn_mod
 from detectorch_tpu_torch.models import heads as heads_mod
 from detectorch_tpu_torch.models import resnet as resnet_mod
 from detectorch_tpu_torch.models import rpn as rpn_mod
-from detectorch_tpu_torch.ops import boxes as box_ops
-from detectorch_tpu_torch.ops.anchors import shifted_anchors
-from detectorch_tpu_torch.ops.cuda.roi_align_kernel import check_precision, roi_align_fwd
+from detectorch_tpu_torch.ops.cuda.roi_align_kernel import (
+    check_precision,
+    roi_align_c4,
+    roi_align_fwd,
+)
 from detectorch_tpu_torch.ops.fpn_levels import map_rois_to_fpn_levels
-from detectorch_tpu_torch.ops.nms import batched_nms, topk_stable
+from detectorch_tpu_torch.ops.roi_align import check_matmul_precision
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -51,18 +60,32 @@ class ModelOutputs(NamedTuple):
     all_exact: Optional[torch.Tensor] = None  # (B,) roi_align_exact & nms_exact
 
 
-def _fpn_roi_align(cfg: ModelConfig, level_feats, rois, levels, size: int,
-                   roi_align=roi_align_fwd):
-    """RoIAlign of (B, N, 4) rois with (B, N) levels over the NHWC pyramid
-    (B, H_l, W_l, C): one launch for the whole batch. Returns
-    (B, N, size, size, C) fp32. `roi_align` takes ``roi_align_fwd``'s
-    arguments: inference passes that wrapper, training the differentiable
-    ``ops.roi_align_fused.roi_align_fused``."""
+def _roi_levels(cfg: ModelConfig, rois):
+    f = cfg.fpn
+    return map_rois_to_fpn_levels(
+        rois, f.roi_min_level, f.roi_max_level,
+        f.roi_canonical_scale, f.roi_canonical_level,
+    ) - f.roi_min_level
+
+
+def roi_features(cfg: ModelConfig, feats, rois, size: int, roi_align=None, levels=None):
+    """RoIAlign of (B, N, 4) rois, one launch for the whole batch:
+    (B, N, size, size, C) fp32. FPN: feats is the NHWC pyramid, each roi on
+    its level (`levels`, from the rois unless given), and `roi_align` takes
+    ``roi_align_fwd``'s arguments (default that wrapper). C4: feats is the
+    (B, H, W, 1024) c4 map, at cfg.spatial_scale with cfg's sampling ratio,
+    and `roi_align` takes ``roi_align_c4``'s (default that wrapper).
+    Training passes the differentiable forms of ``ops.roi_align_fused``."""
+    if not cfg.use_fpn:
+        return (roi_align or roi_align_c4)(feats, rois, size, size, cfg.spatial_scale,
+                                           cfg.roi_sampling_ratio)
     bsz, n = rois.shape[:2]
+    if levels is None:
+        levels = _roi_levels(cfg, rois)
     batch_idx = torch.arange(bsz, dtype=torch.int32, device=rois.device) \
         .repeat_interleave(n)
-    out = roi_align(
-        [f.contiguous() for f in level_feats],
+    out = (roi_align or roi_align_fwd)(
+        [f.contiguous() for f in feats],
         rois.reshape(bsz * n, 4).float().contiguous(),
         batch_idx, levels.reshape(bsz * n).to(torch.int32).contiguous(),
         cfg.fpn_spatial_scales, size, size, cfg.roi_sampling_ratio,
@@ -70,12 +93,24 @@ def _fpn_roi_align(cfg: ModelConfig, level_feats, rois, levels, size: int,
     return out.reshape(bsz, n, size, size, -1)
 
 
-def _roi_levels(cfg: ModelConfig, rois):
-    f = cfg.fpn
-    return map_rois_to_fpn_levels(
-        rois, f.roi_min_level, f.roi_max_level,
-        f.roi_canonical_scale, f.roi_canonical_level,
-    ) - f.roi_min_level
+def backbone_features(params, cfg: ModelConfig, images):
+    """(B, H, W, 3) fp32 images -> the NHWC pyramid [P2..P5] (FPN) or the
+    (B, H/16, W/16, 1024) c4 map (C4), in the compute dtype."""
+    x = images.to(compute_dtype(cfg))
+    if cfg.use_fpn:
+        return fpn_mod.fpn_neck(params, resnet_mod.multilevel_body(params, x, cfg.arch),
+                                cfg.arch)
+    return resnet_mod.c4_body(params, x, cfg.arch)
+
+
+def box_head(params, cfg: ModelConfig, roi_feats):
+    """The box head on (R, S, S, C) fp32 roi features -> (R, D) fp32: fc6/fc7
+    (FPN, D = 1024), or res5 + mean over the features cast to the compute
+    dtype (C4, D = 2048)."""
+    dtype = compute_dtype(cfg)
+    if cfg.use_fpn:
+        return heads_mod.mlp_box_head(params, roi_feats, dtype)
+    return heads_mod.res5_box_head(params, roi_feats.to(dtype), cfg.arch)
 
 
 def rpn_feature_levels(cfg: ModelConfig, pyramid):
@@ -92,15 +127,16 @@ def rpn_feature_levels(cfg: ModelConfig, pyramid):
 
 def level_anchors(cfg: ModelConfig, fh: int, fw: int, lvl: int, device, cache: dict):
     """(fh*fw*A, 4) anchors of one FPN level in the NHWC (H, W, A) order:
-    stride 2**lvl, one size 32 * 2**(lvl-2); kept in `cache` per shape,
-    level and device."""
-    key = (fh, fw, lvl, device)
-    if key not in cache:
-        cache[key] = torch.as_tensor(shifted_anchors(
-            int(fh), int(fw), float(2 ** lvl), (32.0 * 2 ** (lvl - 2),),
-            tuple(cfg.anchors.aspect_ratios),
-        ), device=device)
-    return cache[key]
+    stride 2**lvl, one size 32 * 2**(lvl-2); kept in `cache`."""
+    return rpn_mod.anchor_table(fh, fw, 2 ** lvl, (32.0 * 2 ** (lvl - 2),),
+                                cfg.anchors.aspect_ratios, device, cache)
+
+
+def c4_anchors(cfg: ModelConfig, fh: int, fw: int, device, cache: dict):
+    """(fh*fw*A, 4) anchors of the C4 level: stride 1/spatial_scale, every
+    size and aspect ratio of cfg.anchors (A = 15); kept in `cache`."""
+    return rpn_mod.anchor_table(fh, fw, 1.0 / cfg.spatial_scale, cfg.anchors.sizes,
+                                cfg.anchors.aspect_ratios, device, cache)
 
 
 def _fpn_level_proposals(params, cfg: ModelConfig, pyramid, im_h, im_w, im_scale,
@@ -120,63 +156,48 @@ def _fpn_level_proposals(params, cfg: ModelConfig, pyramid, im_h, im_w, im_scale
 def fpn_proposals(cfg: ModelConfig, level_probs, level_deltas, levels, im_h, im_w,
                   im_scale, pre: int, post: int, anchor_cache: Optional[dict] = None):
     """Per-level decode of the RPN's outputs, ONE batched NMS over (image x
-    level), then the global collect: JAX's ``rpn.generate_proposals`` on
-    each level with pre_nms_top_n = min(pre, fh*fw*A) and post_nms_top_n =
-    post, then ``collect_proposals(..., post)``.
+    level) (``rpn.level_proposals``), then the global collect: JAX's
+    ``rpn.generate_proposals`` on each level with pre_nms_top_n = min(pre,
+    fh*fw*A) and post_nms_top_n = post, then ``collect_proposals(..., post)``.
 
     level_probs (B, fh, fw, A) objectness probabilities and level_deltas
     (B, fh, fw, 4A), per level in `levels`; im_h, im_w, im_scale: (B,) clip
     and min-size bounds. Returns rpn.Proposals with (B, post, ...) fields."""
-    rpn_cfg = cfg.rpn
     cache = {} if anchor_cache is None else anchor_cache
-    h_b, w_b, s_b = im_h[:, None], im_w[:, None], im_scale[:, None]
-    # every level padded to the widest level's candidate count
-    width = max(min(pre, p[0].numel()) for p in level_probs)
-
-    cand_boxes, cand_scores, cand_valid = [], [], []
-    for cls_prob, bbox_pred, lvl in zip(level_probs, level_deltas, levels):
-        bsz, fh, fw, _ = cls_prob.shape
-        anchors = level_anchors(cfg, fh, fw, lvl, cls_prob.device, cache)
-        # NHWC flatten == the (H, W, A) anchor order
-        scores = cls_prob.reshape(bsz, -1)
-        deltas = bbox_pred.reshape(bsz, -1, 4)
-        k = min(pre, scores.shape[1])
-        top_scores, top_idx = topk_stable(scores, k)
-        props = box_ops.bbox_transform(
-            anchors[top_idx], torch.gather(deltas, 1, top_idx[..., None].expand(-1, -1, 4)))
-        props = box_ops.clip_boxes(props, h_b, w_b)
-        ok = box_ops.filter_boxes_mask(props, rpn_cfg.min_size, s_b, h_b, w_b)
-        if k < width:
-            props = torch.nn.functional.pad(props, (0, 0, 0, width - k))
-            top_scores = torch.nn.functional.pad(top_scores, (0, width - k))
-            ok = torch.nn.functional.pad(ok, (0, width - k))
-        cand_boxes.append(props)
-        cand_scores.append(top_scores)
-        cand_valid.append(ok)
-
-    n_lvl = len(level_probs)
-    boxes = torch.stack(cand_boxes, dim=1)    # (B, L, width, 4)
-    scores = torch.stack(cand_scores, dim=1)  # (B, L, width)
-    valid = torch.stack(cand_valid, dim=1)
-    bsz = boxes.shape[0]
-    idx, ok = batched_nms(
-        boxes.reshape(bsz * n_lvl, width, 4), scores.reshape(bsz * n_lvl, width),
-        post, rpn_cfg.nms_thresh, valid=valid.reshape(bsz * n_lvl, width),
-    )
-    idx = idx.reshape(bsz, n_lvl, post)
-    ok = ok.reshape(bsz, n_lvl, post)
-    lvl_boxes = torch.gather(boxes, 2, idx[..., None].expand(-1, -1, -1, 4))
-    lvl_scores = torch.where(ok, torch.gather(scores, 2, idx), torch.zeros_like(ok, dtype=scores.dtype))
-    lvl_props = [
-        rpn_mod.Proposals(boxes=lvl_boxes[:, i], scores=lvl_scores[:, i], valid=ok[:, i])
-        for i in range(n_lvl)
-    ]
+    anchors = [level_anchors(cfg, p.shape[1], p.shape[2], lvl, p.device, cache)
+               for p, lvl in zip(level_probs, levels)]
+    lvl_props = rpn_mod.level_proposals(level_probs, level_deltas, anchors, im_h, im_w,
+                                        im_scale, pre, post, cfg.rpn.nms_thresh,
+                                        cfg.rpn.min_size)
     return rpn_mod.collect_proposals(lvl_props, post)
+
+
+def c4_proposals(cfg: ModelConfig, cls_prob, bbox_pred, im_h, im_w, im_scale, pre: int,
+                 post: int, anchor_cache: Optional[dict] = None):
+    """The C4 RPN's proposals: ``rpn.generate_proposals`` on its one level,
+    stride 1/spatial_scale, cfg.anchors' sizes and ratios; no collect."""
+    return rpn_mod.generate_proposals(
+        cls_prob, bbox_pred, im_h, im_w, im_scale, feat_stride=1.0 / cfg.spatial_scale,
+        anchor_sizes=cfg.anchors.sizes, anchor_aspect_ratios=cfg.anchors.aspect_ratios,
+        pre_nms_top_n=pre, post_nms_top_n=post, nms_thresh=cfg.rpn.nms_thresh,
+        min_size=cfg.rpn.min_size, anchor_cache=anchor_cache)
+
+
+def rpn_proposals(params, cfg: ModelConfig, feats, im_h, im_w, im_scale,
+                  anchor_cache: Optional[dict] = None):
+    """The RPN at cfg.rpn's counts over the backbone's feats: FPN's shared
+    head on P2..P6 and collect, or C4's head (prefix '') on c4 and one NMS."""
+    if cfg.use_fpn:
+        return _fpn_level_proposals(params, cfg, feats, im_h, im_w, im_scale, anchor_cache)
+    cls_prob, bbox_pred = rpn_mod.rpn_head(params, feats, prefix="")
+    return c4_proposals(cfg, cls_prob, bbox_pred, im_h, im_w, im_scale,
+                        cfg.rpn.pre_nms_top_n, cfg.rpn.post_nms_top_n, anchor_cache)
 
 
 def blob_bounds(cfg: ModelConfig, image_hw, im_scale, orig_h, orig_w):
     """Per-image proposal clip/filter bounds (B,): the resized image,
-    ceiled to the coarsest FPN stride, capped at the padded shape."""
+    ceiled to the coarsest FPN stride (FPN only), capped at the padded
+    shape."""
     h, w = image_hw
     im_h = torch.clamp_max(torch.round(orig_h * im_scale), h)
     im_w = torch.clamp_max(torch.round(orig_w * im_scale), w)
@@ -187,16 +208,17 @@ def blob_bounds(cfg: ModelConfig, image_hw, im_scale, orig_h, orig_w):
     return im_h, im_w
 
 
-def box_branch(params, cfg: ModelConfig, test_cfg: TestConfig, level_feats, rois,
-               roi_valid, im_scale, orig_h, orig_w, roi_align=roi_align_fwd):
-    """RoIAlign 7x7 -> fc6/fc7 -> predictors -> per-class NMS + cap.
-    Returns (cls_scores (B,N,C), bbox_deltas (B,N,4C), Detections)."""
+def box_branch(params, cfg: ModelConfig, test_cfg: TestConfig, feats, rois,
+               roi_valid, im_scale, orig_h, orig_w, roi_align=None):
+    """RoIAlign (``roi_features``) -> box head -> predictors -> per-class
+    NMS + cap. feats: the pyramid (FPN) or c4 (C4). Returns (cls_scores
+    (B,N,C), bbox_deltas (B,N,4C), Detections)."""
     bsz, n = rois.shape[:2]
-    dtype = compute_dtype(cfg)
-    roi_feats = _fpn_roi_align(cfg, level_feats, rois, _roi_levels(cfg, rois),
-                               cfg.roi_size, roi_align)
-    box_feats = heads_mod.mlp_box_head(params, roi_feats.reshape(bsz * n, *roi_feats.shape[2:]), dtype)
-    cls_scores, bbox_deltas = heads_mod.box_predictors(params, box_feats, dtype=dtype)
+    roi_feats = roi_features(cfg, feats, rois, cfg.roi_size, roi_align)
+    box_feats = box_head(params, cfg, roi_feats.reshape(bsz * n, *roi_feats.shape[2:]))
+    del roi_feats
+    cls_scores, bbox_deltas = heads_mod.box_predictors(params, box_feats,
+                                                       dtype=compute_dtype(cfg))
     cls_scores = cls_scores.reshape(bsz, n, -1)
     bbox_deltas = bbox_deltas.reshape(bsz, n, -1)
     dets = postprocess_detections(cls_scores, bbox_deltas, rois, roi_valid, im_scale,
@@ -204,34 +226,33 @@ def box_branch(params, cfg: ModelConfig, test_cfg: TestConfig, level_feats, rois
     return cls_scores, bbox_deltas, dets
 
 
-def mask_branch(params, cfg: ModelConfig, level_feats, det_boxes, det_classes, im_scale,
-                roi_align=roi_align_fwd):
+def mask_branch(params, cfg: ModelConfig, feats, det_boxes, det_classes, im_scale,
+                roi_align=None):
     """RoIAlign 14x14 on the detections (original-image boxes (B, K, 4)) ->
     mask head -> class-gathered (B, K, M, M) fp32 probabilities."""
     bsz, k = det_boxes.shape[:2]
     mask_rois = det_boxes * im_scale[:, None, None]
     msize = cfg.mask.roi_size
-    feats = _fpn_roi_align(cfg, level_feats, mask_rois, _roi_levels(cfg, mask_rois),
-                           msize, roi_align)
-    feats = feats.reshape(bsz * k, msize, msize, -1).to(compute_dtype(cfg))
-    probs = heads_mod.mask_head(params, feats, cfg.mask.head_type)
+    x = roi_features(cfg, feats, mask_rois, msize, roi_align)
+    x = x.reshape(bsz * k, msize, msize, -1).to(compute_dtype(cfg))
+    probs = heads_mod.mask_head(params, x, cfg.mask.head_type, cfg.arch)
     m = probs.shape[1]
     cls = det_classes.reshape(bsz * k, 1, 1, 1).expand(-1, m, m, 1)
     return torch.gather(probs, 3, cls)[..., 0].reshape(bsz, k, m, m)
 
 
 def _check_ported(cfg: ModelConfig):
-    if not cfg.use_fpn:
-        raise NotImplementedError("the C4 path is not ported yet")
     if cfg.keypoint is not None:
         raise NotImplementedError("the keypoint branch is not ported yet")
     if cfg.s2d_stem:
         raise NotImplementedError("the space-to-depth stem is a TPU-only layout")
     check_precision(cfg.roi_align_fwd_precision)
+    if not cfg.use_fpn:
+        check_matmul_precision(cfg.roi_align_precision)
 
 
-def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=roi_align_fwd):
-    """Build the batched inference program for an FPN `cfg`.
+def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=None):
+    """Build the batched inference program for `cfg` (FPN or C4).
 
     Returns fn(params, images, im_scale, orig_h, orig_w[, proposals,
     proposals_valid]) -> ModelOutputs:
@@ -241,8 +262,9 @@ def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=roi_alig
       im_scale, orig_h, orig_w: (B,) fp32 tensors;
       proposals (B, P, 4) scaled-coordinate rois and proposals_valid (B, P)
         bool (all valid if omitted): Fast R-CNN mode (cfg.use_rpn False).
-    `roi_align` is the RoIAlign wrapper (kernel on CUDA tensors); pass the
-    plain ``ops.roi_align.multilevel_roi_align`` only to compare the two.
+    `roi_align` is the RoIAlign wrapper (the kernel on CUDA tensors; see
+    ``roi_features``); pass the plain ``ops.roi_align.multilevel_roi_align``
+    (FPN) or ``roi_align_matmul`` (C4) only to compare the two.
     """
     _check_ported(cfg)
     anchor_cache: Dict = {}
@@ -250,13 +272,10 @@ def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=roi_alig
     @torch.inference_mode()
     def forward(params, images, im_scale, orig_h, orig_w, proposals=None,
                 proposals_valid=None) -> ModelOutputs:
-        x = images.to(compute_dtype(cfg))
-        feats = resnet_mod.multilevel_body(params, x, cfg.arch)
-        pyramid = fpn_mod.fpn_neck(params, feats, cfg.arch)
+        feats = backbone_features(params, cfg, images)
         if cfg.use_rpn:
             im_h, im_w = blob_bounds(cfg, images.shape[1:3], im_scale, orig_h, orig_w)
-            props = _fpn_level_proposals(params, cfg, pyramid, im_h, im_w, im_scale,
-                                         anchor_cache)
+            props = rpn_proposals(params, cfg, feats, im_h, im_w, im_scale, anchor_cache)
             rois, roi_valid = props.boxes, props.valid
         else:
             if proposals is None:
@@ -265,11 +284,11 @@ def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=roi_alig
             roi_valid = (proposals_valid if proposals_valid is not None
                          else torch.ones(rois.shape[:2], dtype=torch.bool, device=rois.device))
         cls_scores, bbox_deltas, dets = box_branch(
-            params, cfg, test_cfg, pyramid, rois, roi_valid, im_scale, orig_h, orig_w,
+            params, cfg, test_cfg, feats, rois, roi_valid, im_scale, orig_h, orig_w,
             roi_align)
         masks = None
         if cfg.use_mask:
-            masks = mask_branch(params, cfg, pyramid, dets.boxes, dets.classes, im_scale,
+            masks = mask_branch(params, cfg, feats, dets.boxes, dets.classes, im_scale,
                                 roi_align)
         exact = torch.ones(images.shape[0], dtype=torch.bool, device=images.device)
         return ModelOutputs(
@@ -281,7 +300,7 @@ def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=roi_alig
     return forward
 
 
-def make_mask_fn(cfg: ModelConfig, roi_align=roi_align_fwd):
+def make_mask_fn(cfg: ModelConfig, roi_align=None):
     """Mask-only program: final detection boxes -> class-gathered masks.
 
     fn(params, images, im_scale, orig_h, orig_w, boxes, classes) -> masks
@@ -300,9 +319,8 @@ def make_mask_fn(cfg: ModelConfig, roi_align=roi_align_fwd):
     @torch.inference_mode()
     def forward(params, images, im_scale, orig_h, orig_w, boxes, classes):
         del orig_h, orig_w
-        feats = resnet_mod.multilevel_body(params, images.to(compute_dtype(cfg)), cfg.arch)
-        pyramid = fpn_mod.fpn_neck(params, feats, cfg.arch)
-        return mask_branch(params, cfg, pyramid, boxes.float(), classes.long(), im_scale,
+        feats = backbone_features(params, cfg, images)
+        return mask_branch(params, cfg, feats, boxes.float(), classes.long(), im_scale,
                            roi_align)
 
     return forward

@@ -1,8 +1,9 @@
 """Box, classification and mask heads.
 
-Port of ``detectorch_tpu/models/heads.py`` (the FPN '1up4convs' mask head;
-'upshare' waits for the C4 port). Blob names: fc6/fc7, cls_score,
-bbox_pred, conv5_mask, mask_fcn_logits, _[mask]_fcn{1..4}.
+Port of ``detectorch_tpu/models/heads.py``: the FPN box head (fc6/fc7) and
+'1up4convs' mask head, and the C4 heads on res5 (``res5_box_head`` and the
+'upshare' mask head). Blob names: fc6/fc7, cls_score, bbox_pred, res5_*,
+conv5_mask, mask_fcn_logits, _[mask]_fcn{1..4}.
 
 RoI features are NHWC (R, PH, PW, C) and fc6 flattens them in (H, W, C)
 order, as the JAX package does; the RoIAlign kernel writes exactly that
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from detectorch_tpu_torch.models.resnet import conv, to_nchw, to_nhwc
+from detectorch_tpu_torch.models.resnet import c5_head, conv, to_nchw, to_nhwc
 
 
 def linear(params, x, name: str, dtype=torch.bfloat16):
@@ -37,6 +38,13 @@ def mlp_box_head(params, roi_feats, dtype=torch.bfloat16):
     x = roi_feats.reshape(roi_feats.shape[0], -1)
     x = F.relu(linear(params, x, "fc6", dtype))
     return F.relu(linear(params, x, "fc7", dtype))
+
+
+def res5_box_head(params, roi_feats, arch: str = "resnet50"):
+    """res5 + global average pool: roi_feats (N, 14, 14, 1024) -> (N, 2048)
+    fp32 (the mean in the features' dtype, as JAX's)."""
+    x = c5_head(params, roi_feats, arch=arch, stride=2)  # (N, 7, 7, 2048)
+    return x.mean(dim=(1, 2)).float()
 
 
 def box_predictors(params, box_feats, output_prob: bool = True, dtype=torch.bfloat16):
@@ -66,15 +74,19 @@ def four_layer_conv_trunk(params, x):
     return to_nhwc(y)
 
 
-def mask_head(params, roi_feats, head_type: str, output_prob: bool = True):
+def mask_head(params, roi_feats, head_type: str, arch: str = "resnet50",
+              output_prob: bool = True):
     """Mask branch: roi_feats (N, 14, 14, C) NHWC -> (N, M, M, classes) fp32
-    sigmoid probabilities (or the logits when not output_prob)."""
-    if head_type == "upshare":
-        raise NotImplementedError("the C4 'upshare' mask head is not ported yet")
-    if head_type != "1up4convs":
-        raise ValueError(head_type)
+    sigmoid probabilities (or the logits when not output_prob). 'upshare'
+    (C4): res5 at stride 2 on 1024 channels; '1up4convs' (FPN): four 3x3
+    convs on 256."""
     x = roi_feats.contiguous()  # NHWC, so the NCHW views below are channels_last
-    x = four_layer_conv_trunk(params, x)
+    if head_type == "upshare":
+        x = c5_head(params, x, arch=arch, stride=2)  # (N, 7, 7, 2048)
+    elif head_type == "1up4convs":
+        x = four_layer_conv_trunk(params, x)  # (N, 14, 14, 256)
+    else:
+        raise ValueError(head_type)
     x = F.relu(deconv2x2(params, x, "conv5_mask"))
     logits = conv(to_nchw(x), params["mask_fcn_logits_w"]) \
         + params["mask_fcn_logits_b"].to(x.dtype)[:, None, None]

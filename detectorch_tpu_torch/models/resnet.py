@@ -86,6 +86,22 @@ def stem(params: Params, x):
     return max_pool_3x3s2(x)
 
 
+def c4_body(params: Params, x, arch: str = "resnet50"):
+    """conv1..res4 on NHWC x: the C4 conv body, NHWC (N, H/16, W/16, 1024)."""
+    blocks = STAGE_BLOCKS[arch]
+    x = stem(params, to_nchw(x).contiguous(memory_format=torch.channels_last))
+    x = stage(params, x, "res2", blocks[0], stride=1)
+    x = stage(params, x, "res3", blocks[1], stride=2)
+    return to_nhwc(stage(params, x, "res4", blocks[2], stride=2))
+
+
+def c5_head(params: Params, x, arch: str = "resnet50", stride: int = 2):
+    """res5 on NHWC roi features (the C4 box and mask conv head):
+    (R, 14, 14, 1024) -> (R, 7, 7, 2048) NHWC."""
+    x = to_nchw(x).contiguous(memory_format=torch.channels_last)
+    return to_nhwc(stage(params, x, "res5", STAGE_BLOCKS[arch][3], stride=stride))
+
+
 def multilevel_body(params: Params, x, arch: str = "resnet50"):
     """conv1..res5 on NHWC x, returning NHWC {c2, c3, c4, c5}."""
     blocks = STAGE_BLOCKS[arch]

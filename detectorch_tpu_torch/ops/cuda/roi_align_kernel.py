@@ -1,5 +1,5 @@
-"""Multilevel FPN RoIAlign forward and backward: the CUDA kernels' build,
-binding and wrappers.
+"""Multilevel RoIAlign forward and backward (the FPN pyramid, or C4's one
+level): the CUDA kernels' build, binding and wrappers.
 
   * ``roi_align_fwd`` replaces the Pallas TPU kernel
     ``_roi_align_pallas_batched``
@@ -18,6 +18,11 @@ Each wrapper dispatches on where its tensors lie: CPU tensors run the plain
 PyTorch version (``ops/roi_align.multilevel_roi_align`` and
 ``multilevel_roi_align_backward``); CUDA tensors launch the kernel or raise —
 there is no fallback on CUDA.
+
+The C4 call site (``roi_align_c4``, ``roi_align_c4_bwd``) runs the same two
+kernels with one level at the C4 scale and the adaptive grid (sampling_ratio
+0, max_grid 8); on CPU tensors its plain versions are the separable
+``ops/roi_align.roi_align_matmul`` and its gradient, JAX's C4 formulation.
 
 What each kernel decides per roi is mirrored here in numpy, so that the CPU
 tests can hold it to the plain version: the forward's tap plan
@@ -184,7 +189,7 @@ class RoIAlignForward(_Kernel):
         max_grid: int = 8,
         fwd_precision: str = "exact",
     ) -> torch.Tensor:
-        """RoIAlign over FPN levels: (R, PH, PW, C) fp32.
+        """RoIAlign over levels (FPN's, or C4's one): (R, PH, PW, C) fp32.
 
         feature_list: per level (B, H_l, W_l, C) NHWC, finest first; rois
         (R, 4) fp32 image-space xyxy; batch_idx and levels (R,) int32.
@@ -479,3 +484,42 @@ class RoIAlignBackward(_Kernel):
 
 roi_align_fwd = RoIAlignForward()
 roi_align_bwd = RoIAlignBackward()
+
+
+def _one_level(rois):
+    """(B, N, 4) rois of one level -> (B*N, 4) fp32, image indices and
+    level indices (all 0), as the kernels take them."""
+    bsz, n = rois.shape[:2]
+    flat = rois.reshape(bsz * n, 4).float().contiguous()
+    bidx = torch.arange(bsz, dtype=torch.int32, device=rois.device).repeat_interleave(n)
+    return flat, bidx, torch.zeros(bsz * n, dtype=torch.int32, device=rois.device)
+
+
+def roi_align_c4(features, rois, pooled_h: int, pooled_w: int, spatial_scale: float,
+                 sampling_ratio: int = 0, max_grid: int = 8) -> torch.Tensor:
+    """C4 RoIAlign: features (B, H, W, C) NHWC of one level, rois (B, N, 4)
+    image-space xyxy -> (B, N, PH, PW, C) fp32; one forward kernel launch
+    for the whole batch on CUDA tensors, ``roi_align_matmul`` on CPU ones."""
+    if _one_device([features, rois], "C4 RoIAlign").type == "cpu":
+        return plain.roi_align_matmul(features, rois, pooled_h, pooled_w, spatial_scale,
+                                      sampling_ratio, max_grid)
+    bsz, n = rois.shape[:2]
+    out = roi_align_fwd([features.contiguous()], *_one_level(rois), (spatial_scale,),
+                        pooled_h, pooled_w, sampling_ratio, max_grid)
+    return out.reshape(bsz, n, pooled_h, pooled_w, -1)
+
+
+def roi_align_c4_bwd(g, feature_shape, rois, pooled_h: int, pooled_w: int,
+                     spatial_scale: float, sampling_ratio: int = 0, max_grid: int = 8,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Feature gradient of ``roi_align_c4``: g (B, N, PH, PW, C) fp32 ->
+    (B, H, W, C) in `out_dtype`, summed in fp32 and rounded once; one
+    backward kernel launch on CUDA tensors, ``roi_align_matmul_backward``
+    on CPU ones."""
+    if _one_device([g, rois], "C4 RoIAlign backward").type == "cpu":
+        return plain.roi_align_matmul_backward(g, feature_shape, rois, pooled_h, pooled_w,
+                                               spatial_scale, sampling_ratio, max_grid,
+                                               out_dtype=out_dtype)
+    g = g.reshape(-1, pooled_h, pooled_w, g.shape[-1]).contiguous()
+    return roi_align_bwd(g, [tuple(feature_shape)], *_one_level(rois), (spatial_scale,),
+                         pooled_h, pooled_w, sampling_ratio, max_grid, out_dtype)[0]

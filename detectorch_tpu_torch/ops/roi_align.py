@@ -16,6 +16,14 @@ index so one call serves a whole batch:
 through the same taps (the counterpart of JAX's gather VJP and of
 ``multilevel_roi_align_slab_grad``).
 
+``roi_align_matmul`` is the C4 form (one level, the adaptive grid of
+``sampling_ratio`` 0): bin-averaged bilinear sampling is separable per axis,
+so each roi's output is Ky · F · Kxᵀ with dense per-axis hat weights, 1/count
+folded into Ky; ``roi_align_matmul_backward`` is its feature gradient,
+Kyᵀ · g · Kx summed over the rois. Port of JAX's ``roi_align_matmul``,
+chunked over rois as it is. The gather form pads every bin to max_grid²
+taps, which at C4's 1024 channels is tens of GB for a hundred rois.
+
 These are the plain versions that sit beside the CUDA kernels
 (``ops/cuda/roi_align_kernel.py``): CPU tensors run them, and the kernels
 are held to them on the card.
@@ -23,6 +31,7 @@ are held to them on the card.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -200,3 +209,130 @@ def multilevel_roi_align_backward(
         flat.index_add_(0, i.reshape(-1), (gs * w[..., None]).reshape(-1, channels))
     return [part.reshape(tuple(shape)).to(out_dtype)
             for part, shape in zip(flat.split(sizes), feature_shapes)]
+
+
+# JAX's roi_align_matmul tiers that the port computes exactly: both run the
+# fp32 form ('high' is bf16_3x on a TPU; JAX's CPU path computes fp32 too)
+MATMUL_PRECISIONS = ("high", "highest")
+
+
+def check_matmul_precision(precision: str) -> None:
+    """The C4 RoIAlign is exact fp32; the 'bf16' tier (bf16 intermediate and
+    output) is refused rather than run at another precision."""
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError(f"roi_align_precision {precision!r} is not supported by the port; "
+                         f"supported: {MATMUL_PRECISIONS}")
+
+
+def _axis_weights_dense(coords, grid, size: int, max_grid: int):
+    """Dense per-axis weights (N, pooled, size): each live sample lays the hat
+    max(0, 1 - |y - h|) over the axis at its clamped coordinate y, summed
+    over the bin's samples. Samples outside [-1, size] or past the adaptive
+    grid add nothing; a sample clamped onto the last row puts weight 1
+    there, as the caffe2 taps do."""
+    dev = coords.device
+    live = (coords >= -1.0) & (coords <= size) & (
+        torch.arange(max_grid, device=dev)[None, None, :] < grid[:, None, None])
+    yc = torch.clamp(coords, 0.0, size - 1.0)
+    h = torch.arange(size, dtype=torch.float32, device=dev)
+    hat = torch.clamp_min(1.0 - (yc[..., None] - h).abs(), 0.0)  # (N, P, S, size)
+    return torch.where(live[..., None], hat, torch.zeros((), device=dev)).sum(dim=2)
+
+
+def separable_weights(rois, spatial_scale, pooled_h: int, pooled_w: int, sampling_ratio: int,
+                      max_grid: int, height: int, width: int):
+    """Per-roi interpolation matrices of one level: Ky (N, PH, H) with
+    1/(grid_h*grid_w) folded in, and Kx (N, PW, W). rois (N, 4) image-space
+    xyxy fp32."""
+    start_h, start_w, bin_h, bin_w, grid_h, grid_w = roi_geometry(
+        rois, spatial_scale, pooled_h, pooled_w, sampling_ratio, max_grid)
+    if sampling_ratio > 0:
+        max_grid = sampling_ratio
+    ys = sample_coords(start_h, bin_h, grid_h, pooled_h, max_grid)
+    xs = sample_coords(start_w, bin_w, grid_w, pooled_w, max_grid)
+    ky = _axis_weights_dense(ys, grid_h, height, max_grid)
+    kx = _axis_weights_dense(xs, grid_w, width, max_grid)
+    inv_count = 1.0 / (grid_h * grid_w).float()
+    return ky * inv_count[:, None, None], kx
+
+
+@contextlib.contextmanager
+def _fp32_matmul():
+    """The separable products in true fp32: no TF32 on the card."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _batched_weights(rois, spatial_scale, pooled_h, pooled_w, sampling_ratio, max_grid,
+                     height, width):
+    bsz, n = rois.shape[:2]
+    ky, kx = separable_weights(rois.reshape(bsz * n, 4).float(), spatial_scale, pooled_h,
+                               pooled_w, sampling_ratio, max_grid, height, width)
+    return ky.reshape(bsz, n, pooled_h, height), kx.reshape(bsz, n, pooled_w, width)
+
+
+def roi_align_matmul(features, rois, pooled_h: int, pooled_w: int, spatial_scale: float,
+                     sampling_ratio: int = 0, max_grid: int = 8, precision: str = "highest",
+                     roi_chunk: int = 128):
+    """Separable RoIAlign on one feature level, exact fp32.
+
+    features (B, H, W, C) with rois (B, N, 4), or (H, W, C) with (N, 4), as
+    JAX's; returns (B, N, PH, PW, C) (or (N, PH, PW, C)) fp32. Per chunk of
+    `roi_chunk` rois (0: one chunk) the (B, chunk, PH, W, C) intermediate
+    Ky · F is formed, then contracted with Kx; each roi's output does not
+    depend on the chunking. precision 'high' and 'highest' both compute
+    fp32 (``check_matmul_precision``)."""
+    check_matmul_precision(precision)
+    single = features.dim() == 3
+    if single:
+        features, rois = features[None], rois[None]
+    bsz, height, width, channels = features.shape
+    n = rois.shape[1]
+    ky, kx = _batched_weights(rois, spatial_scale, pooled_h, pooled_w, sampling_ratio,
+                              max_grid, height, width)
+    f = features.float().reshape(bsz, height, width * channels)
+    chunk = n if roi_chunk <= 0 else roi_chunk
+    outs = [torch.zeros((bsz, 0, pooled_h, pooled_w, channels), device=features.device)]
+    with _fp32_matmul():
+        for s in range(0, n, max(chunk, 1)):
+            kyc, kxc = ky[:, s:s + chunk], kx[:, s:s + chunk]
+            m = kyc.shape[1]
+            # (B, m*PH, H) x (B, H, W*C) -> (B*m, PH, W, C)
+            tmp = torch.bmm(kyc.reshape(bsz, m * pooled_h, height), f) \
+                .reshape(bsz * m, pooled_h, width, channels)
+            # (B*m, PW, W) x (B*m, PH, W, C) -> (B*m, PH, PW, C)
+            out = torch.einsum("nqw,npwc->npqc", kxc.reshape(bsz * m, pooled_w, width), tmp)
+            outs.append(out.reshape(bsz, m, pooled_h, pooled_w, channels))
+    out = torch.cat(outs, dim=1)
+    return out[0] if single else out
+
+
+def roi_align_matmul_backward(g, feature_shape, rois, pooled_h: int, pooled_w: int,
+                              spatial_scale: float, sampling_ratio: int = 0, max_grid: int = 8,
+                              roi_chunk: int = 128, out_dtype: torch.dtype = torch.float32):
+    """Feature gradient of ``roi_align_matmul``: dF = sum over rois of
+    Kyᵀ · g · Kx, in fp32, rounded once to `out_dtype`.
+
+    g (B, N, PH, PW, C) cotangent; feature_shape (B, H, W, C); rois
+    (B, N, 4). Returns (B, H, W, C)."""
+    bsz, height, width, channels = (int(d) for d in feature_shape)
+    n = rois.shape[1]
+    ky, kx = _batched_weights(rois, spatial_scale, pooled_h, pooled_w, sampling_ratio,
+                              max_grid, height, width)
+    acc = torch.zeros((bsz, height, width * channels), dtype=torch.float32, device=g.device)
+    chunk = n if roi_chunk <= 0 else roi_chunk
+    with _fp32_matmul():
+        for s in range(0, n, max(chunk, 1)):
+            gc, kyc, kxc = g[:, s:s + chunk].float(), ky[:, s:s + chunk], kx[:, s:s + chunk]
+            m = kyc.shape[1]
+            # (B*m, PH, PW, C) x (B*m, PW, W) -> (B*m, PH, W, C)
+            t = torch.einsum("npqc,nqw->npwc", gc.reshape(bsz * m, pooled_h, pooled_w, channels),
+                             kxc.reshape(bsz * m, pooled_w, width))
+            # (B, H, m*PH) x (B, m*PH, W*C)
+            acc += torch.bmm(kyc.reshape(bsz, m * pooled_h, height).transpose(1, 2),
+                             t.reshape(bsz, m * pooled_h, width * channels))
+    return acc.reshape(bsz, height, width, channels).to(out_dtype)

@@ -6,7 +6,9 @@ Pallas slab forward with a choice of VJPs; the port computes RoIAlign and
 its feature gradient exactly for every roi, so its one function is what
 JAX's exact choices compute: the forward is ``roi_align_fwd`` and the
 backward ``roi_align_bwd`` (the CUDA kernels on CUDA tensors, the plain
-PyTorch versions on CPU tensors). Rois, image indices and levels receive no
+PyTorch versions on CPU tensors); ``roi_align_c4_fused`` is the same for the
+C4 call site (JAX's ``roi_align_matmul`` under ``jax.grad``). Rois, image
+indices and levels receive no
 gradient, as in JAX (``roi_align.py:612-617``) and in the reference's CUDA
 backward, which differentiates the features only.
 """
@@ -17,7 +19,12 @@ from typing import Sequence
 
 import torch
 
-from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
+from detectorch_tpu_torch.ops.cuda.roi_align_kernel import (
+    roi_align_bwd,
+    roi_align_c4,
+    roi_align_c4_bwd,
+    roi_align_fwd,
+)
 
 # JAX's train_step.ROI_ALIGN_IMPLS
 ROI_ALIGN_IMPLS = ("gather", "pallas", "pallas-mm", "pallas-slab", "pallas-zero")
@@ -89,3 +96,30 @@ def roi_align_fused(
     ``multilevel_roi_align_backward``) by name."""
     spec = (tuple(level_scales), pooled_h, pooled_w, sampling_ratio, max_grid)
     return _RoIAlign.apply(rois, batch_idx, levels, spec, fwd, bwd, *feature_list)
+
+
+class _RoIAlignC4(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, rois, spec, fwd, bwd):
+        ctx.save_for_backward(rois)
+        ctx.spec, ctx.bwd = spec, bwd
+        ctx.shape, ctx.dtype = tuple(features.shape), features.dtype
+        return fwd(features, rois, *spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        rois, = ctx.saved_tensors
+        grad = ctx.bwd(g.contiguous(), ctx.shape, rois, *ctx.spec, out_dtype=ctx.dtype)
+        return grad, None, None, None, None
+
+
+def roi_align_c4_fused(features, rois, pooled_h: int, pooled_w: int, spatial_scale: float,
+                       sampling_ratio: int = 0, max_grid: int = 8, fwd=roi_align_c4,
+                       bwd=roi_align_c4_bwd) -> torch.Tensor:
+    """C4 RoIAlign with a gradient for the features: takes the arguments of
+    ``roi_align_c4`` and returns (B, N, PH, PW, C) fp32; the gradient comes
+    back in the features' dtype, summed in fp32 and rounded once. A
+    comparison on the card passes the plain versions
+    (``ops.roi_align.roi_align_matmul`` and ``roi_align_matmul_backward``)."""
+    spec = (pooled_h, pooled_w, spatial_scale, sampling_ratio, max_grid)
+    return _RoIAlignC4.apply(features, rois, spec, fwd, bwd)

@@ -43,6 +43,7 @@ def main() -> int:
     from detectorch_tpu_torch.config import PRESETS
     from detectorch_tpu_torch.models import rpn as rpn_mod
     from detectorch_tpu_torch.models.detector import (
+        backbone_features,
         fpn_proposals,
         init_params,
         level_anchors,
@@ -51,7 +52,7 @@ def main() -> int:
     from detectorch_tpu_torch.ops import nms as nms_mod
     from detectorch_tpu_torch.ops.boxes import bbox_overlaps
     from detectorch_tpu_torch.train import e2e
-    from detectorch_tpu_torch.train.train_step import backbone_pyramid, device_images
+    from detectorch_tpu_torch.train.train_step import device_images
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -63,7 +64,7 @@ def main() -> int:
     info = b["meta"][:, 2:5]
     bsz = b["raw"].shape[0]
     with torch.no_grad():
-        pyramid = backbone_pyramid(params, cfg, device_images(b, (cs.HEIGHT, cs.WIDTH)))
+        pyramid = backbone_features(params, cfg, device_images(b, (cs.HEIGHT, cs.WIDTH)))
         feats, levels = rpn_feature_levels(cfg, pyramid)
         heads = [rpn_mod.rpn_head(params, f, prefix="_fpn2", return_logits=True) for f in feats]
     cache = {}

@@ -1,4 +1,4 @@
-"""COCO evaluation of the R-50-FPN family, in PyTorch.
+"""COCO evaluation of the R-50-FPN and R-50-C4 families, in PyTorch.
 
 Port of ``tools/eval_coco.py``: runs a preset over a COCO dataset and
 prints throughput and box (and mask) AP, through
@@ -10,8 +10,8 @@ prints throughput and box (and mask) AP, through
 
 Weights come from a Detectron ``.pkl`` (--weights) or from a ``ckpt-<step>``
 of the port's trainer (--ckpt: a checkpoint, or a run directory whose latest
-checkpoint is read); BN is folded into the convs either way. The FPN presets
-run (Fast, Faster and Mask R-CNN); C4 and keypoint presets are refused.
+checkpoint is read); BN is folded into the convs either way. The FPN and C4
+presets run (Fast, Faster and Mask R-CNN); keypoint presets are refused.
 """
 
 from __future__ import annotations

@@ -13,6 +13,10 @@ of the trainer and of ``eval_coco``). Close the loop with::
       --ann instances_train2014.json --imdir train2014 --out proposals.pkl
   python -m detectorch_tpu_torch.tools.train_fast --fpn --proposals proposals.pkl ...
 
+and likewise with ``--preset e2e_faster_rcnn_R-50-C4_2x``, whose proposals
+feed ``fast_rcnn_R-50-C4_2x`` (the trainer without ``--fpn``, or
+``eval_coco --preset fast_rcnn_R-50-C4_2x --proposals``).
+
 The flags are the JAX tool's, except that ``--ckpt`` (a ``ckpt-<step>`` of
 the port's trainer, or its run directory) replaces ``--orbax``, as in
 ``eval_coco``, and ``--device`` (default cuda) picks the torch device.

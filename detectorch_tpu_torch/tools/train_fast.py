@@ -1,6 +1,8 @@
-"""Fast, Faster and Mask R-CNN training on the FPN path, in PyTorch.
+"""Fast, Faster and Mask R-CNN training, R-50-FPN and R-50-C4, in PyTorch.
 
-Port of ``tools/train_fast.py`` for ``--fpn``: the Detectron 2x schedule
+Port of ``tools/train_fast.py``: ``--fpn`` trains the FPN presets, without it
+the C4 ones (``fast_rcnn_R-50-C4_2x``, ``e2e_faster_rcnn_R-50-C4_2x``,
+``e2e_mask_rcnn_R-50-C4_2x``), as the JAX tool picks them. The Detectron 2x schedule
 (SGD momentum 0.9, wd 1e-4, step-decay LR with linear warmup, grad clip
 35, conv1 + res2 frozen), with the same argument names and defaults for the
 options it keeps, ``ckpt-<step>`` checkpoints under --out and ``--resume``.
@@ -22,10 +24,14 @@ which use OpenCV (cv2).
 
   python -m detectorch_tpu_torch.tools.train_fast --fpn --e2e --masks \\
       --ann instances_train2014.json --imdir train2014 --out runs/mask_rcnn
+  python -m detectorch_tpu_torch.tools.train_fast --e2e --masks \\
+      --ann instances_train2014.json --imdir train2014 --out runs/mask_rcnn_c4
 
 --base-cnn loads an ImageNet base CNN from a Detectron ``.pkl``
 (``checkpoint.caffe2_import.import_base_cnn``); the heads keep their random
-init. Not ported yet, and refused: --keypoints and the C4 presets (no --fpn).
+init. --roi-align takes JAX's names; the C4 presets take 'gather' (or
+'auto'), as JAX's do: its Pallas names are the FPN path. Not ported yet,
+and refused: --keypoints.
 """
 
 from __future__ import annotations
@@ -75,7 +81,8 @@ def parse_args(argv=None):
                    default="auto",
                    help="the JAX package's RoIAlign names; the port's RoIAlign is exact, so "
                         "every accepted name runs the same CUDA forward and backward "
-                        "kernels ('pallas-mm' only at --roi-align-bwd-precision highest)")
+                        "kernels ('pallas-mm' only at --roi-align-bwd-precision highest; "
+                        "the C4 presets take 'gather')")
     p.add_argument("--roi-align-bwd-precision", choices=["bf16", "high", "highest"],
                    default="bf16", help="tier of 'pallas-mm'; only 'highest' is ported")
     p.add_argument("--roi-align-fwd-precision", choices=["exact", "bf16x3", "bf16"],
@@ -94,8 +101,9 @@ def parse_args(argv=None):
         p.error("--keypoints is not ported to PyTorch yet")
     if args.base_cnn and not os.path.isfile(args.base_cnn):
         p.error(f"--base-cnn {args.base_cnn}: no such file")
-    if not args.fpn:
-        p.error("the C4 presets are not ported to PyTorch yet: pass --fpn")
+    if not args.fpn and args.roi_align not in ("auto", "gather"):
+        p.error(f"--roi-align {args.roi_align} is the FPN path: the C4 presets "
+                "(no --fpn) take 'gather'")
     if not args.masks and not args.e2e and not args.proposals:
         # Fast R-CNN needs hard negatives from precomputed proposals
         p.error("--proposals is required unless --masks or --e2e is given")
@@ -120,17 +128,19 @@ def main(argv=None):
     from detectorch_tpu_torch.utils.stats import TrainingStats
 
     device = torch.device(args.device)
-    if args.masks:
-        preset = "e2e_mask_rcnn_R-50-FPN_2x"
-    else:
-        preset = "e2e_faster_rcnn_R-50-FPN_2x" if args.e2e else "fast_rcnn_R-50-FPN_2x"
+    family = "FPN" if args.fpn else "C4"
+    kind = "e2e_mask_rcnn" if args.masks else "e2e_faster_rcnn" if args.e2e else "fast_rcnn"
+    preset = f"{kind}_R-50-{family}_2x"
     cfg = PRESETS[preset].replace(arch=args.arch,
                                   roi_align_fwd_precision=args.roi_align_fwd_precision)
     solver = SolverConfig(base_lr=args.base_lr, max_iter=args.max_iter,
                           checkpoint_period=args.checkpoint_period)
     sampler_cfg = SamplerConfig(rois_per_image=args.rois_per_image)
     test_cfg = TestConfig(target_size=args.target_size, max_size=args.max_size)
-    roi_align_impl = "pallas-slab" if args.roi_align == "auto" else args.roi_align
+    if args.roi_align == "auto":
+        roi_align_impl = "pallas-slab" if cfg.use_fpn else "gather"
+    else:
+        roi_align_impl = args.roi_align
     blob_hw = tuple(args.blob)
     kwargs = dict(train_mask=args.masks, device_input=args.device_preprocess, blob_hw=blob_hw,
                   roi_align_impl=roi_align_impl, bwd_precision=args.roi_align_bwd_precision)

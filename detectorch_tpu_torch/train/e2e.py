@@ -1,4 +1,4 @@
-"""End-to-end Faster / Mask R-CNN training on the FPN path: RPN and heads jointly.
+"""End-to-end Faster / Mask R-CNN training, FPN and C4: RPN and heads jointly.
 
 Port of ``detectorch_tpu/train/e2e.py`` (upstream Detectron e2e semantics:
 anchor targets of ``roi_data/rpn.py``, the RPN losses of ``rpn_heads.py``,
@@ -6,7 +6,8 @@ roi sampling from the RPN's own proposals as in ``roi_data/fast_rcnn.py``,
 and mask targets crop-resized from per-gt rasters). The JAX package vmaps a
 single-image loss; here every function takes a leading batch axis and the
 step runs eagerly on the whole batch: one backbone call, one RPN head call
-per level, one batched NMS over (image x level), one RoIAlign launch per
+per level (C4: one level with 15 anchors, its proposals without the FPN
+collect), one batched NMS over (image x level), one RoIAlign launch per
 branch. Every loss is computed per image, and the step's loss is the mean
 of the per-image losses, as JAX's vmapped loss gives.
 
@@ -20,10 +21,10 @@ foreground and roi background (P+G,), in [0, 1), and the roi order jitter
 (P+G,) in [0, 0.5), with A anchors, P = train_post_nms proposals and G gt
 slots.
 
-RoIAlign is ``ops.roi_align_fused.roi_align_fused`` (the CUDA kernels on
-CUDA tensors). It is exact for every roi, so JAX's ``frac_rois_overflowed``
-metric has no counterpart. Not ported yet, and refused: the C4 path and the
-keypoint branch.
+RoIAlign is differentiable through ``ops.roi_align_fused`` (the CUDA kernels
+on CUDA tensors). It is exact for every roi, so JAX's
+``frac_rois_overflowed`` metric has no counterpart. Not ported yet, and
+refused: the keypoint branch.
 """
 
 from __future__ import annotations
@@ -35,13 +36,18 @@ import torch
 
 from detectorch_tpu_torch.config import ModelConfig, SamplerConfig, SolverConfig
 from detectorch_tpu_torch.models import rpn as rpn_mod
-from detectorch_tpu_torch.models.detector import fpn_proposals, level_anchors, rpn_feature_levels
+from detectorch_tpu_torch.models.detector import (
+    backbone_features,
+    c4_anchors,
+    c4_proposals,
+    fpn_proposals,
+    level_anchors,
+    rpn_feature_levels,
+)
 from detectorch_tpu_torch.ops import boxes as box_ops
-from detectorch_tpu_torch.ops.roi_align_fused import roi_align_fused
 from detectorch_tpu_torch.train import losses
 from detectorch_tpu_torch.train.train_step import (
     _check_trainable,
-    backbone_pyramid,
     check_step_config,
     device_images,
     expand_bbox_targets_device,
@@ -272,7 +278,7 @@ def torch_uniforms(seed: int):
 def e2e_losses(params, cfg: ModelConfig, sampler_cfg: SamplerConfig, images, gt_boxes,
                gt_classes, gt_valid, info, uniforms: Callable, rpn_batch_size: int = 256,
                train_pre_nms: int = 12000, train_post_nms: int = 2000,
-               extras: Optional[Dict] = None, roi_align=roi_align_fused,
+               extras: Optional[Dict] = None, roi_align=None,
                anchor_cache: Optional[dict] = None, stage: Optional[Callable] = None):
     """Joint RPN + box (+ mask) loss of a batch; the backbone runs once.
 
@@ -280,7 +286,9 @@ def e2e_losses(params, cfg: ModelConfig, sampler_cfg: SamplerConfig, images, gt_
     coords, gt_classes (B, G), gt_valid (B, G); info (B, 3) [resized_h,
     resized_w, im_scale]. uniforms(n_anchors, n_cand) -> {key: (B, n)} (see
     the module docstring). The proposals use the reference's train counts
-    (pre 12000 per level, post 2000) and carry no gradient. extras with
+    (pre 12000 per level, post 2000; C4: one level, no collect) and carry
+    no gradient. `roi_align` defaults to the differentiable kernels of
+    ``ops.roi_align_fused`` (``train_step.roi_heads_loss``). extras with
     gt_masks (B, G, Mg, Mg) uint8 rasters and gt_mask_valid (B, G) turn on
     the mask branch, over the first round(fg_fraction * R) sampled rows.
     stage(name), if given, is called after each stage (the chip smoke test
@@ -296,14 +304,22 @@ def e2e_losses(params, cfg: ModelConfig, sampler_cfg: SamplerConfig, images, gt_
     im_h, im_w, im_scale = info[:, 0], info[:, 1], info[:, 2]
     bsz = images.shape[0]
 
-    pyramid = backbone_pyramid(params, cfg, images)
-    mark("backbone + neck")
-    feats, levels = rpn_feature_levels(cfg, pyramid)
-    heads = [rpn_mod.rpn_head(params, f, prefix="_fpn2", return_logits=True) for f in feats]
+    feats = backbone_features(params, cfg, images)
+    mark("backbone + neck" if cfg.use_fpn else "backbone")
+    if cfg.use_fpn:
+        rpn_feats, levels = rpn_feature_levels(cfg, feats)
+        heads = [rpn_mod.rpn_head(params, f, prefix="_fpn2", return_logits=True)
+                 for f in rpn_feats]
+    else:
+        heads = [rpn_mod.rpn_head(params, feats, prefix="", return_logits=True)]
     mark("rpn head")
 
-    anchors = torch.cat([level_anchors(cfg, lg.shape[1], lg.shape[2], lvl, lg.device, cache)
-                         for (lg, _), lvl in zip(heads, levels)])
+    if cfg.use_fpn:
+        anchors = torch.cat([level_anchors(cfg, lg.shape[1], lg.shape[2], lvl, lg.device, cache)
+                             for (lg, _), lvl in zip(heads, levels)])
+    else:
+        lg = heads[0][0]
+        anchors = c4_anchors(cfg, lg.shape[1], lg.shape[2], lg.device, cache)
     u = uniforms(anchors.shape[0], train_post_nms + gt_boxes.shape[1])
     labels, targets = rpn_targets(anchors, gt_boxes, gt_valid, im_h, im_w,
                                   u["anchor_pos"], u["anchor_neg"], batch_size=rpn_batch_size)
@@ -314,9 +330,14 @@ def e2e_losses(params, cfg: ModelConfig, sampler_cfg: SamplerConfig, images, gt_
     mark("rpn targets + losses")
 
     with torch.no_grad():
-        props = fpn_proposals(cfg, [torch.sigmoid(lg) for lg, _ in heads],
-                              [dl for _, dl in heads], levels, im_h, im_w, im_scale,
-                              train_pre_nms, train_post_nms, cache)
+        probs = [torch.sigmoid(lg) for lg, _ in heads]
+        deltas = [dl for _, dl in heads]
+        if cfg.use_fpn:
+            props = fpn_proposals(cfg, probs, deltas, levels, im_h, im_w, im_scale,
+                                  train_pre_nms, train_post_nms, cache)
+        else:
+            props = c4_proposals(cfg, probs[0], deltas[0], im_h, im_w, im_scale,
+                                 train_pre_nms, train_post_nms, cache)
     mark("proposals + nms")
 
     sampled = sample_rois_device(props.boxes, props.valid, gt_boxes, gt_classes, gt_valid,
@@ -332,7 +353,7 @@ def e2e_losses(params, cfg: ModelConfig, sampler_cfg: SamplerConfig, images, gt_
     targets, inside = expand_bbox_targets_device(sampled.targets, cfg.num_classes)
     mark("sampling + mask targets")
 
-    _, metrics = roi_heads_loss(params, cfg, pyramid, sampled.rois, sampled.labels, targets,
+    _, metrics = roi_heads_loss(params, cfg, feats, sampled.rois, sampled.labels, targets,
                                 inside, (inside > 0).to(inside.dtype), sampled.valid,
                                 mask_targets, mask_valid, roi_align)
     total = metrics["loss_cls"] + metrics["loss_bbox"] + loss_rpn_cls + loss_rpn_bbox
@@ -363,8 +384,9 @@ def make_e2e_train_step(cfg: ModelConfig, solver_cfg: SolverConfig = SolverConfi
     uniforms(step, batch_size, n_anchors, n_cand, device) -> {key: (B, n)}
     supplies each step's uniforms; by default ``torch_uniforms(seed)``.
     roi_align_impl and bwd_precision take JAX's names
-    (``ops.roi_align_fused.check_roi_align_impl``). train_keypoints and the
-    C4 and keypoint presets raise NotImplementedError."""
+    (``ops.roi_align_fused.check_roi_align_impl``; the C4 presets take
+    'gather', as JAX's do). train_keypoints and the keypoint presets raise
+    NotImplementedError."""
     if train_keypoints:
         raise NotImplementedError("keypoint training is not ported yet")
     check_step_config(cfg, train_mask, roi_align_impl, bwd_precision)

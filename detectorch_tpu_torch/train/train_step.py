@@ -1,4 +1,4 @@
-"""The Fast/Mask R-CNN training step on the FPN path.
+"""The Fast/Mask R-CNN training step, FPN and C4.
 
 Port of ``detectorch_tpu/train/train_step.py`` (reference ``train_fast.py``:
 forward, cross-entropy + smooth-L1, grad clip 35, SGD momentum, per-iter
@@ -8,14 +8,16 @@ one RoIAlign launch per branch — and keeps JAX's semantics: every loss is
 computed per image and the step's loss is the mean of the per-image losses
 (``train_step.py:295-300``), not one loss over the flattened batch.
 
-RoIAlign is ``ops.roi_align_fused.roi_align_fused``: forward and backward
-CUDA kernels on CUDA tensors, the plain versions on CPU tensors. It is exact
-for every roi, so JAX's ``frac_rois_overflowed`` metric (the share of rois
-that overflow the TPU kernel's slab) has no counterpart here.
+RoIAlign is differentiable through ``ops.roi_align_fused``: the forward and
+backward CUDA kernels on CUDA tensors, the plain versions on CPU tensors;
+``roi_align_fused`` over the FPN pyramid, ``roi_align_c4_fused`` over the C4
+map, whose box and mask heads are res5 (``models.detector.box_head``,
+``heads.mask_head('upshare')``). It is exact for every roi, so JAX's
+``frac_rois_overflowed`` metric (the share of rois that overflow the TPU
+kernel's slab) has no counterpart here.
 
-Not ported yet, and refused: the C4 path and keypoint training.
-End-to-end training (``train/e2e.py``) builds on ``backbone_pyramid`` and
-``roi_heads_loss``.
+Not ported yet, and refused: keypoint training. End-to-end training
+(``train/e2e.py``) builds on ``roi_heads_loss``.
 """
 
 from __future__ import annotations
@@ -26,12 +28,21 @@ import torch
 
 from detectorch_tpu_torch.config import ModelConfig, SolverConfig
 from detectorch_tpu_torch.data.device_input import device_preprocess
-from detectorch_tpu_torch.models import fpn as fpn_mod
 from detectorch_tpu_torch.models import heads as heads_mod
-from detectorch_tpu_torch.models import resnet as resnet_mod
-from detectorch_tpu_torch.models.detector import _fpn_roi_align, _roi_levels, compute_dtype
+from detectorch_tpu_torch.models.detector import (
+    _roi_levels,
+    backbone_features,
+    box_head,
+    compute_dtype,
+    roi_features,
+)
 from detectorch_tpu_torch.ops.cuda.roi_align_kernel import check_precision
-from detectorch_tpu_torch.ops.roi_align_fused import check_roi_align_impl, roi_align_fused
+from detectorch_tpu_torch.ops.roi_align import check_matmul_precision
+from detectorch_tpu_torch.ops.roi_align_fused import (
+    check_roi_align_impl,
+    roi_align_c4_fused,
+    roi_align_fused,
+)
 from detectorch_tpu_torch.train import losses
 from detectorch_tpu_torch.train import solver as solver_mod
 
@@ -60,7 +71,7 @@ def load_state_dict(state: TrainState, saved: Dict) -> TrainState:
 
 def box_branch_loss(params, cfg: ModelConfig, images, rois, labels, bbox_targets,
                     bbox_inside_weights, bbox_outside_weights, valid,
-                    mask_targets=None, mask_valid=None, roi_align=roi_align_fused):
+                    mask_targets=None, mask_valid=None, roi_align=None):
     """Per-image Fast R-CNN loss of a batch, plus the mask loss when
     mask_targets/mask_valid are given (upstream Detectron mask training).
 
@@ -71,37 +82,32 @@ def box_branch_loss(params, cfg: ModelConfig, images, rois, labels, bbox_targets
     (total (B,), metrics {name: (B,)}).
     """
     _check_trainable(cfg)
-    pyramid = backbone_pyramid(params, cfg, images)
-    return roi_heads_loss(params, cfg, pyramid, rois, labels, bbox_targets,
+    feats = backbone_features(params, cfg, images)
+    return roi_heads_loss(params, cfg, feats, rois, labels, bbox_targets,
                           bbox_inside_weights, bbox_outside_weights, valid,
                           mask_targets, mask_valid, roi_align)
 
 
 def _check_trainable(cfg: ModelConfig):
-    if not cfg.use_fpn:
-        raise NotImplementedError("C4 training is not ported yet")
     if cfg.keypoint is not None:
         raise NotImplementedError("keypoint training is not ported yet")
 
 
-def backbone_pyramid(params, cfg: ModelConfig, images):
-    """ResNet body and FPN neck: (B, H, W, 3) fp32 -> NHWC [P2..P5]."""
-    feats = resnet_mod.multilevel_body(params, images.to(compute_dtype(cfg)), cfg.arch)
-    return fpn_mod.fpn_neck(params, feats, cfg.arch)
-
-
-def roi_heads_loss(params, cfg: ModelConfig, pyramid, rois, labels, bbox_targets,
+def roi_heads_loss(params, cfg: ModelConfig, feats, rois, labels, bbox_targets,
                    bbox_inside_weights, bbox_outside_weights, valid,
-                   mask_targets=None, mask_valid=None, roi_align=roi_align_fused):
-    """``box_branch_loss`` on a pyramid already computed: RoIAlign 7x7 and
-    the box head over every roi, RoIAlign 14x14 and the mask head over the
-    first Rm rois. One RoIAlign launch per branch for the whole batch."""
+                   mask_targets=None, mask_valid=None, roi_align=None):
+    """``box_branch_loss`` on backbone features already computed (the FPN
+    pyramid or the C4 map): RoIAlign and the box head over every roi,
+    RoIAlign 14x14 and the mask head over the first Rm rois. One RoIAlign
+    launch per branch for the whole batch. `roi_align` defaults to
+    ``roi_align_fused`` (FPN) or ``roi_align_c4_fused`` (C4)."""
     dtype = compute_dtype(cfg)
-    levels = _roi_levels(cfg, rois)
+    roi_align = roi_align or (roi_align_fused if cfg.use_fpn else roi_align_c4_fused)
+    levels = _roi_levels(cfg, rois) if cfg.use_fpn else None
     bsz, r = rois.shape[:2]
-    roi_feats = _fpn_roi_align(cfg, pyramid, rois, levels, cfg.roi_size, roi_align)
-    box_feats = heads_mod.mlp_box_head(params, roi_feats.reshape(bsz * r, *roi_feats.shape[2:]),
-                                       dtype)
+    roi_feats = roi_features(cfg, feats, rois, cfg.roi_size, roi_align, levels)
+    box_feats = box_head(params, cfg, roi_feats.reshape(bsz * r, *roi_feats.shape[2:]))
+    del roi_feats
     cls_logits, bbox_pred = heads_mod.box_predictors(params, box_feats, output_prob=False,
                                                      dtype=dtype)
     cls_logits = cls_logits.reshape(bsz, r, -1)
@@ -121,11 +127,11 @@ def roi_heads_loss(params, cfg: ModelConfig, pyramid, rois, labels, bbox_targets
     if cfg.use_mask and mask_targets is not None:
         rm = mask_targets.shape[1]
         msize = cfg.mask.roi_size
-        mask_feats = _fpn_roi_align(cfg, pyramid, rois[:, :rm], levels[:, :rm], msize,
-                                    roi_align)
+        mask_feats = roi_features(cfg, feats, rois[:, :rm], msize, roi_align,
+                                  None if levels is None else levels[:, :rm])
         mask_logits = heads_mod.mask_head(
             params, mask_feats.reshape(bsz * rm, msize, msize, -1).to(dtype),
-            cfg.mask.head_type, output_prob=False)
+            cfg.mask.head_type, cfg.arch, output_prob=False)
         mask_logits = mask_logits.reshape(bsz, rm, *mask_logits.shape[1:])
         loss_mask = losses.mask_loss(mask_logits, mask_targets, labels[:, :rm], mask_valid)
         total = total + loss_mask
@@ -212,6 +218,12 @@ def check_step_config(cfg: ModelConfig, train_mask: bool, roi_align_impl: str,
         raise ValueError("train_mask=True needs a mask preset")
     check_precision(cfg.roi_align_fwd_precision)
     check_roi_align_impl(roi_align_impl, bwd_precision)
+    if not cfg.use_fpn:
+        check_matmul_precision(cfg.roi_align_precision)
+        if roi_align_impl != "gather":
+            # JAX asserts it: the Pallas names are the FPN path
+            raise ValueError(f"roi_align_impl {roi_align_impl!r} is the FPN path; "
+                             "the C4 presets train with 'gather'")
 
 
 def make_init_state(solver_cfg: SolverConfig):

@@ -252,5 +252,10 @@ def test_fast_rcnn_fpn_matches_jax(rng):
 @pytest.mark.parametrize("preset", ["e2e_mask_rcnn_R-50-C4_2x", "fast_rcnn_R-50-C4_2x",
                                     "e2e_keypoint_rcnn_R-50-FPN_1x"])
 def test_unported_branches_raise(preset):
+    # the C4 presets run (tests/test_torch_c4_detector.py); a keypoint
+    # branch on them, as on FPN, is not ported yet
+    cfg = PRESETS[preset]
+    if cfg.keypoint is None:
+        cfg = cfg.replace(keypoint=PRESETS["e2e_keypoint_rcnn_R-50-FPN_1x"].keypoint)
     with pytest.raises(NotImplementedError):
-        tdet.make_inference_fn(PRESETS[preset], PTCFG)
+        tdet.make_inference_fn(cfg, PTCFG)

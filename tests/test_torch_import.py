@@ -175,6 +175,78 @@ assert os.path.exists(os.path.join(tmp, "p.pkl"))
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_c4_paths_run_without_jax(tmp_path):
+    # the C4 family tiny and on the CPU: Faster and Fast R-CNN inference,
+    # make_mask_fn, evaluate_dataset from in-memory images, the
+    # host-sampled training step with masks and the e2e step
+    code = """
+import json, os, sys
+import numpy as np
+import torch
+from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+from detectorch_tpu_torch.config import PRESETS, RPNConfig, SamplerConfig, TestConfig
+from detectorch_tpu_torch.data.coco import CocoDataset
+from detectorch_tpu_torch.eval.engine import evaluate_dataset
+from detectorch_tpu_torch.models.detector import init_params, make_inference_fn, make_mask_fn
+from detectorch_tpu_torch.train.e2e import make_e2e_train_step
+from detectorch_tpu_torch.train.train_step import make_train_step
+
+cfg = PRESETS["e2e_mask_rcnn_R-50-C4_2x"].replace(compute_dtype="float32",
+                                                  rpn=RPNConfig(pre_nms_top_n=60, post_nms_top_n=8))
+params = params_from_jax(init_params(cfg, seed=0))
+tcfg = TestConfig(target_size=48, max_size=64, detections_per_img=4, score_thresh=0.0,
+                  exact_blob_dims=True, max_proposals=8)
+rng = np.random.RandomState(0)
+images = torch.from_numpy(rng.randn(1, 64, 64, 3).astype(np.float32))
+meta = [torch.ones(1), torch.full((1,), 64.0), torch.full((1,), 64.0)]
+out = make_inference_fn(cfg, tcfg)(params, images, *meta)
+assert out.masks.shape == (1, 12, 14, 14)
+masks = make_mask_fn(cfg)(params, images, *meta, out.detections.boxes, out.detections.classes)
+assert masks.shape == (1, 12, 14, 14)
+fast = PRESETS["fast_rcnn_R-50-C4_2x"].replace(compute_dtype="float32")
+fout = make_inference_fn(fast, tcfg)(params, images, *meta,
+                                     torch.tensor([[[4.0, 4.0, 40.0, 30.0]] * 8]))
+assert fout.cls_scores.shape == (1, 8, 81)
+
+tmp = sys.argv[1]
+pics = {"im0.png": rng.randint(0, 256, (48, 64, 3)).astype(np.uint8)}
+with open(os.path.join(tmp, "ann.json"), "w") as f:
+    json.dump({"images": [{"id": 1, "file_name": "im0.png", "height": 48, "width": 64}],
+               "annotations": [{"id": 1, "image_id": 1, "category_id": 1,
+                                "bbox": [10, 8, 30, 22], "area": 660.0, "iscrowd": 0,
+                                "segmentation": [[10, 8, 40, 8, 40, 30, 10, 30]]}],
+               "categories": [{"id": c, "name": str(c)} for c in range(1, 81)]}, f)
+bbox, segm, info = evaluate_dataset(
+    cfg, tcfg.replace(device_preprocess=True), params,
+    CocoDataset(os.path.join(tmp, "ann.json"), tmp), verbose=False, batch_size=1,
+    load_image=lambda p: pics[os.path.basename(p)], device="cpu")
+assert len(info["segm"]) == len(info["bbox"]) > 0
+
+b, r = 1, 8
+rois = torch.tensor([[[4.0, 4.0, 40.0, 30.0]] * r])
+batch = {"image": images, "rois": rois, "labels": torch.tensor([[3] + [0] * (r - 1)]),
+         "bbox_targets": torch.zeros(b, r, 324), "bbox_inside_weights": torch.zeros(b, r, 324),
+         "bbox_outside_weights": torch.zeros(b, r, 324), "valid": torch.ones(b, r, dtype=bool),
+         "mask_targets": torch.ones(b, 2, 14, 14), "mask_valid": torch.tensor([[True, False]])}
+init_state, make_step = make_train_step(cfg, train_mask=True)
+state, opt = init_state(params)
+state, metrics = make_step(opt)(state, batch)
+assert torch.isfinite(metrics["loss"])
+e2e = {"image": images, "info": torch.tensor([[64.0, 64.0, 1.0]]),
+       "gt_boxes": torch.tensor([[[8.0, 8.0, 40.0, 36.0]]]), "gt_classes": torch.tensor([[3]]),
+       "gt_valid": torch.tensor([[True]])}
+init_state, make_step = make_e2e_train_step(cfg, sampler_cfg=SamplerConfig(rois_per_image=8),
+                                            train_pre_nms=60, train_post_nms=8)
+state, opt = init_state(params)
+state, metrics = make_step(opt)(state, e2e)
+assert torch.isfinite(metrics["loss_rpn_cls"])
+""" + LEAK_CHECK
+    # the Tier-1 command's six workers share the cores: one torch thread
+    proc = _python(["-c", code, str(tmp_path)], cwd=REPO,
+                   env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_no_jax_import_in_port_sources():
     # neither jax nor any module of the JAX package, at any indentation
     pattern = re.compile(r"^\s*(import|from) (jax|detectorch_tpu)(\.|\s|$)", re.M)

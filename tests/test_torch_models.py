@@ -158,5 +158,13 @@ def test_mask_head(params, rng):
     exp = jheads.mask_head(jp, jnp.asarray(feats), "1up4convs")
     assert got.shape == (3, 28, 28, 81) and got.dtype == torch.float32
     _close(got, exp)
-    with pytest.raises(NotImplementedError):
-        theads.mask_head(tp, torch.from_numpy(feats), "upshare")
+    # the C4 'upshare' head: res5 (the fixture's blobs) on 1024 channels,
+    # then conv5_mask over 2048
+    up = {**jp, **jheads.init_mask_head_params("upshare", 81, seed=4)}
+    rng2 = np.random.RandomState(12)
+    up["conv5_mask_b"] = (rng2.randn(256) * 0.1).astype(np.float32)
+    feats = rng2.randn(3, 14, 14, 1024).astype(np.float32)
+    got = theads.mask_head(params_from_jax(up), torch.from_numpy(feats), "upshare")
+    exp = jheads.mask_head(up, jnp.asarray(feats), "upshare")
+    assert got.shape == (3, 14, 14, 81) and got.dtype == torch.float32
+    _close(got, exp)

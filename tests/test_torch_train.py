@@ -295,12 +295,17 @@ def test_batch_loss_is_the_mean_of_per_image_losses():
     (FAST, {"roi_align_impl": "pallas-mm"}, ValueError),
 ])
 def test_unported_training_raises(preset, kwargs, error):
+    # C4 trains (tests/test_torch_c4_train.py); a keypoint branch on it, as
+    # on FPN, is not ported yet
+    cfg = PRESETS[preset]
+    if not cfg.use_fpn:
+        cfg = cfg.replace(keypoint=PRESETS["e2e_keypoint_rcnn_R-50-FPN_1x"].keypoint)
     with pytest.raises(error):
-        make_train_step(PRESETS[preset], PSOLVER, **kwargs)
+        make_train_step(cfg, PSOLVER, **kwargs)
 
 
 @pytest.mark.parametrize("preset,kwargs", [
-    ("e2e_faster_rcnn_R-50-C4_2x", {}),
+    ("e2e_faster_rcnn_R-50-C4_2x", {"train_keypoints": True}),
     ("e2e_keypoint_rcnn_R-50-FPN_1x", {}),
     ("e2e_keypoint_rcnn_R-50-FPN_1x", {"train_keypoints": True}),
 ], ids=["C4", "keypoint-preset", "train_keypoints"])

@@ -178,11 +178,15 @@ def test_checkpoint_resume_is_exact(rng, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--fpn", "--keypoints"],
-                                   ["--fpn", "--base-cnn", "missing-R-50.pkl"], [], ["--e2e"]],
+                                   ["--fpn", "--base-cnn", "missing-R-50.pkl"],
+                                   ["--roi-align", "pallas-slab"],
+                                   ["--e2e", "--roi-align", "pallas-mm",
+                                    "--roi-align-bwd-precision", "highest"]],
                          ids=["--keypoints", "--base-cnn", "no-fpn", "--e2e-no-fpn"])
 def test_cli_refuses_unported_modes(flags):
     # --base-cnn is ported; a base CNN file that does not exist is refused.
-    # Without --fpn, the C4 presets: refused with --masks and with --e2e
+    # Without --fpn the C4 presets train (tests/test_torch_c4_cli.py), with
+    # the 'gather' RoIAlign only: JAX's Pallas names are the FPN path
     with pytest.raises(SystemExit):
         train_fast.parse_args(["--ann", "a.json", "--imdir", "im", "--masks", *flags])
 

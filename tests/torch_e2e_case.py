@@ -1,12 +1,13 @@
 """The e2e training case that tests/test_torch_e2e_*.py hold the port to JAX on.
 
-Two images at full R-50-FPN widths in a 64x128 blob (the JAX package's e2e
-tests' size), 2-3 gt boxes each with polygon masks, gt_pad 8,
+Two images at full R-50-FPN (or R-50-C4) widths in a 64x128 blob (the JAX
+package's e2e tests' size), 2-3 gt boxes each with polygon masks, gt_pad 8,
 SamplerConfig(rois_per_image=32), train counts pre 200 / post 64; weights
 from tests/test_torch_train._params. JAX runs ``make_e2e_train_step`` with
-roi_align_impl='pallas-slab' (Pallas kernels in interpret mode), as
-tests/test_torch_train.py runs ``make_train_step``; the port runs its own
-with the uniforms that JAX's keys give (``jax_uniforms``).
+roi_align_impl='pallas-slab' (Pallas kernels in interpret mode) for FPN,
+as tests/test_torch_train.py runs ``make_train_step``, and 'gather' (its
+only choice: the separable ``roi_align_matmul``) for C4; the port runs its
+own with the uniforms that JAX's keys give (``jax_uniforms``).
 
 How the sampled sets are compared, and why: the anchor targets come from
 inputs that are equal on both sides and are equal bit for bit; the
@@ -38,6 +39,10 @@ B, G, H, W = 2, 8, 64, 128
 PRE, POST, SEED = 200, 64, 5
 SAMPLER, PSAMPLER = both_configs(lambda c: c.SamplerConfig(rois_per_image=32))
 SOLVER, PSOLVER = both_configs(lambda c: c.SolverConfig(base_lr=0.01, warmup_iters=0))
+# the C4 case's step-0 gradient norm passes the schedule's clip (35): its
+# tests run without the clip, so that JAX's optax trace holds the gradient
+SOLVER_NO_CLIP, PSOLVER_NO_CLIP = both_configs(
+    lambda c: c.SolverConfig(base_lr=0.01, warmup_iters=0, clip_grad_norm=1e9))
 ROI_ATOL = 2e-3  # px: backbone drift of ~1e-6 through exp() of the RPN deltas
 # (original h, w) of the two images: resized into the 64x128 blob at scales
 # 1.0667 (64x128) and 1.1636 (58x128)
@@ -46,6 +51,11 @@ ORIG = ((60, 120), (50, 110))
 
 def cfgs(preset, **kw):
     return both_configs(lambda c: c.PRESETS[preset].replace(**kw))
+
+
+def roi_align_impl(cfg):
+    """JAX's Pallas names are the FPN path; C4 trains with 'gather'."""
+    return "pallas-slab" if cfg.use_fpn else "gather"
 
 
 def _ellipse(box):
@@ -122,13 +132,13 @@ def jax_uniforms(seed=SEED):
     return draw
 
 
-def run_jax(cfg, params, batch, train_mask, device_input, steps):
+def run_jax(cfg, params, batch, train_mask, device_input, steps, solver=SOLVER):
     """JAX's metrics per step, its step-0 gradient and its params after
     `steps` steps, both in the port's layout."""
     init_state, make_step = JE.make_e2e_train_step(
-        cfg, SOLVER, SAMPLER, seed=SEED, train_pre_nms=PRE, train_post_nms=POST,
+        cfg, solver, SAMPLER, seed=SEED, train_pre_nms=PRE, train_post_nms=POST,
         train_mask=train_mask, device_input=device_input, blob_hw=(H, W),
-        roi_align_impl="pallas-slab")
+        roi_align_impl=roi_align_impl(cfg))
     state, tx = init_state(params)
     step = jax.jit(make_step(tx))
     metrics, grads = [], None
@@ -137,20 +147,32 @@ def run_jax(cfg, params, batch, train_mask, device_input, steps):
         metrics.append({k: float(v) for k, v in m.items()})
         if i == 0:
             trace = _jax_trace(state.opt_state)
-            wd = np.float32(SOLVER.weight_decay)
+            wd = np.float32(solver.weight_decay)
             grads = {k: np.array(trace[k]) - wd * params[k] for k in params}
             norm = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum()) for g in grads.values()))
-            assert norm < SOLVER.clip_grad_norm  # the trace holds the unclipped gradient
+            assert norm < solver.clip_grad_norm  # the trace holds the unclipped gradient
     return (metrics, params_from_jax(grads),
             params_from_jax({k: np.array(v) for k, v in state.params.items()}))
 
 
 def jax_sampled(cfg, params, images, batch):
     """JAX's step-0 roi sample of each image, from JAX's own backbone, RPN
-    head, per-level ``generate_proposals``, ``collect_proposals`` and
-    ``sample_rois_device`` with the step's keys."""
+    head, per-level ``generate_proposals``, ``collect_proposals`` (FPN; C4:
+    one level, no collect) and ``sample_rois_device`` with the step's keys."""
     @jax.jit
     def one(image, gt_boxes, gt_classes, gt_valid, info, key):
+        _, k_roi = jax.random.split(key)
+        if not cfg.use_fpn:
+            logits, deltas = jrpn.rpn_head(params, jresnet.c4_body(params, image[None], cfg.arch),
+                                           prefix="", return_logits=True)
+            p = jrpn.generate_proposals(
+                jax.nn.sigmoid(logits[0]), deltas[0], info[0], info[1], info[2],
+                feat_stride=1.0 / cfg.spatial_scale, anchor_sizes=cfg.anchors.sizes,
+                anchor_aspect_ratios=cfg.anchors.aspect_ratios,
+                pre_nms_top_n=min(PRE, logits[0].size), post_nms_top_n=POST,
+                nms_thresh=cfg.rpn.nms_thresh, min_size=cfg.rpn.min_size)
+            return JE.sample_rois_device(p.boxes, p.valid, gt_boxes, gt_classes, gt_valid,
+                                         k_roi, SAMPLER)
         pyramid = jfpn.fpn_neck(params, jresnet.multilevel_body(params, image[None], cfg.arch),
                                 cfg.arch)
         props = []
@@ -164,7 +186,6 @@ def jax_sampled(cfg, params, images, batch):
                 pre_nms_top_n=min(PRE, fh * fw * 3), post_nms_top_n=POST,
                 nms_thresh=cfg.rpn.nms_thresh, min_size=cfg.rpn.min_size))
         p = jrpn.collect_proposals(props, POST)
-        _, k_roi = jax.random.split(key)
         return JE.sample_rois_device(p.boxes, p.valid, gt_boxes, gt_classes, gt_valid, k_roi,
                                      SAMPLER)
 
@@ -203,11 +224,11 @@ def port_losses(pcfg, params, batch, train_mask, device_input, roi_align=None):
     return total.detach(), metrics, sampled, grads, images.detach().numpy()
 
 
-def run_port(pcfg, params, batch, train_mask, device_input, steps):
+def run_port(pcfg, params, batch, train_mask, device_input, steps, solver=PSOLVER):
     init_state, make_step = E.make_e2e_train_step(
-        pcfg, PSOLVER, PSAMPLER, seed=SEED, train_pre_nms=PRE, train_post_nms=POST,
+        pcfg, solver, PSAMPLER, seed=SEED, train_pre_nms=PRE, train_post_nms=POST,
         train_mask=train_mask, device_input=device_input, blob_hw=(H, W),
-        roi_align_impl="pallas-slab", uniforms=jax_uniforms())
+        roi_align_impl=roi_align_impl(pcfg), uniforms=jax_uniforms())
     state, opt = init_state(params_from_jax(params))
     step = make_step(opt)
     metrics = []
