@@ -88,11 +88,34 @@ Phases — each passes or the script exits non-zero:
      and make_e2e_train_step with masks from uint8 input (12000 -> 2000),
      each as phases 7 and 10 (ms/step, img/s, peak memory, launches, the
      loss over 5 steps, the most rois on one backward tile);
- 16. one image of the C4 training step in fp32, held as phase 8.
+ 16. one image of the C4 training step in fp32, held as phase 8;
+ 17. Keypoint R-CNN, e2e_keypoint_rcnn_R-50-FPN_1x, from here on at full
+     width and depth (8 convs of 512, 17 keypoints, 56x56 heatmaps), bf16,
+     batch 8, 832x1344, init_params(seed 0): a warm-up and three timed
+     requests (img/s, peak memory, 2 forward launches each), one request
+     split by stage (backbone + neck, RPN + proposals, box RoIAlign +
+     fc6/fc7, postprocess, keypoint RoIAlign, keypoint trunk + deconv +
+     upsample, decode), the forward kernel on that request's keypoint call
+     against the plain version (error, time, bound, share), and 2 images in
+     fp32 with the kernel against the plain RoIAlign: heatmaps, argmax bins
+     (near-ties aside), x/y, logits and probabilities within tolerance;
+ 18. keypoint evaluation of 24 person-keypoints images (480x640, made by the
+     port's data/synth copy) through evaluate_dataset, batch 8, on-device
+     preprocessing: img/s and its split, 10 finite OKS stats, 2 launches per
+     batch, then the batched engine against the single-image engine in fp32
+     on detections and keypoints;
+ 19. the host-sampled keypoint training step (512 rois and 128 keypoint rows
+     per image, 5 steps: ms/step, img/s, peak memory, the forward /
+     backward / update split, 2 + 2 launches per step, the loss lower after
+     5 steps), then the backward kernel on those 128 rows per image against
+     the plain version (error, time, bound, share);
+ 20. the e2e keypoint step from uint8 input (RPN 12000 -> 2000, 512 rois,
+     gt keypoints inside the gt boxes), as phase 10 with a keypoint stage;
+ 21. one image of the keypoint training step in fp32, held as phase 8.
 
 The line before the last is a JSON summary of the kernels (their times and
 bounds are those of the random bf16 7x7 call; "calls" lists every timed
-call, FPN and C4; "launches" counts phase 10's three steps,
+call, FPN, C4 and the keypoint calls; "launches" counts phase 10's three steps,
 "launches_by_path" each path's timed run), the line before it nvidia-smi's
 name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
@@ -121,6 +144,12 @@ KERNEL_ATOL = 1e-5
 # summation order (~1e-6); through fc6/fc7 that moves softmax probabilities
 # (~1/81) and deltas by far less than these bounds
 CLS_ATOL, DELTA_ATOL, MASK_ATOL = 1e-5, 1e-4, 1e-4
+# fp32 keypoint branch, kernel vs plain RoIAlign on the same boxes: roi
+# features ~1e-7 apart in relative terms, carried through 8 convs of 512;
+# heatmap logits within KP_HEAT_REL of their largest, x/y equal (to fp32
+# rounding) where the argmax bins agree, the spatial softmax's probability
+# (a sum over 3136 bins) within KP_PROB_REL
+KP_HEAT_REL, KP_XY_ATOL, KP_PROB_REL = 1e-4, 1e-3, 1e-3
 # backward kernel vs plain: the same fp32 products of g, bilinear weights and
 # 1/count, summed per pixel in another order (the kernel by roi and bin, the
 # plain version by index_add_)
@@ -430,7 +459,6 @@ def check_outputs(out, cfg, test_cfg, batch):
 
     k = test_cfg.detections_per_img + test_cfg.detections_tie_slack
     n = cfg.rpn.post_nms_top_n
-    m = cfg.mask.resolution
     d = out.detections
     shapes = {
         "rois": (out.rois, (batch, n, 4)),
@@ -441,13 +469,31 @@ def check_outputs(out, cfg, test_cfg, batch):
         "det_scores": (d.scores, (batch, k)),
         "det_classes": (d.classes, (batch, k)),
         "det_valid": (d.valid, (batch, k)),
-        "masks": (out.masks, (batch, k, m, m)),
     }
+    check((out.masks is None) != cfg.use_mask, "masks present without the mask branch or absent")
+    check((out.keypoints is None) == (cfg.keypoint is None),
+          "keypoints present without the keypoint branch or absent")
+    if cfg.use_mask:
+        m = cfg.mask.resolution
+        shapes["masks"] = (out.masks, (batch, k, m, m))
+    if cfg.keypoint is not None:
+        shapes["keypoints"] = (out.keypoints, (batch, k, cfg.keypoint.num_keypoints, 4))
     for name, (t, shape) in shapes.items():
         check(tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
         if t.is_floating_point():
             check(bool(torch.isfinite(t).all()), f"{name} not finite")
-    check(bool(((out.masks >= 0) & (out.masks <= 1)).all()), "mask probabilities outside [0, 1]")
+    if cfg.use_mask:
+        check(bool(((out.masks >= 0) & (out.masks <= 1)).all()),
+              "mask probabilities outside [0, 1]")
+    if cfg.keypoint is not None:
+        prob = out.keypoints[..., 3]
+        check(bool(((prob > 0) & (prob <= 1)).all()), "keypoint probabilities outside (0, 1]")
+        # every decoded keypoint lies in its detection's box (widths >= 1 px)
+        b = d.boxes[..., None, :]
+        kx, ky = out.keypoints[..., 0], out.keypoints[..., 1]
+        inside = ((kx >= b[..., 0]) & (kx <= torch.maximum(b[..., 2], b[..., 0] + 1))
+                  & (ky >= b[..., 1]) & (ky <= torch.maximum(b[..., 3], b[..., 1] + 1)))
+        check(bool(inside[d.valid].all()), "a decoded keypoint lies outside its box")
     n_valid = d.valid.sum(dim=1)
     check(bool((d.scores[d.valid] > test_cfg.score_thresh).all()), "valid detection below threshold")
     check(bool((d.scores[~d.valid] == 0).all()) and bool((d.classes[~d.valid] == 0).all()),
@@ -547,24 +593,81 @@ def phase_fp32_parity(device, params, height=HEIGHT, width=WIDTH, cfg=None, test
           "rois differ between kernel and plain runs")
     cls_err = (out_k.cls_scores - out_p.cls_scores).abs().max().item()
     delta_err = (out_k.bbox_deltas - out_p.bbox_deltas).abs().max().item()
-    # masks of the same detections through both RoIAlign versions (the
-    # detection top-K of random weights sits on near-ties)
+    # masks and keypoints of the same detections through both RoIAlign
+    # versions (the detection top-K of random weights sits on near-ties)
     with torch.inference_mode():
         feats = backbone_features(params, cfg, args[0])
         d = out_k.detections
-        masks_p = mask_branch(params, cfg, feats, d.boxes, d.classes, args[1], roi_align=plain)
-    mask_err = (out_k.masks - masks_p).abs().max().item()
+        branch = ""
+        if cfg.use_mask:
+            masks_p = mask_branch(params, cfg, feats, d.boxes, d.classes, args[1],
+                                  roi_align=plain)
+            mask_err = (out_k.masks - masks_p).abs().max().item()
+            branch = f"max|d masks| {mask_err:.3g} (tol {MASK_ATOL:g}); "
+        if cfg.keypoint is not None:
+            kp = compare_keypoints(params, cfg, feats, d.boxes, args[1], plain)
+            branch = (f"keypoint heatmaps max|d| {kp['heat_err']:.3g} = "
+                      f"{kp['heat_err'] / kp['heat_scale']:.3g} of max|plain| "
+                      f"{kp['heat_scale']:.3g} (tol {KP_HEAT_REL:g}); argmax bins equal at "
+                      f"{kp['same']} of {kp['count']} keypoints, the rest near-ties (plain "
+                      f"max - plain at the kernel's bin <= {kp['tie_gap']:.3g}); x/y max|d| "
+                      f"{kp['xy_err']:.3g} px where the bins are equal (tol {KP_XY_ATOL:g}), "
+                      f"logits {kp['logit_err']:.3g}, probabilities rel {kp['prob_rel']:.3g} "
+                      f"(tol {KP_PROB_REL:g}); ")
     same_dets = torch.equal(out_k.detections.classes, out_p.detections.classes) \
         and torch.equal(out_k.detections.valid, out_p.detections.valid)
     log(f"[{tag}] {images} image(s), kernel vs plain RoIAlign: rois equal; "
         f"max|d cls_scores| {cls_err:.3g} (tol {CLS_ATOL:g}), "
-        f"max|d bbox_deltas| {delta_err:.3g} (tol {DELTA_ATOL:g}), "
-        f"max|d masks| {mask_err:.3g} (tol {MASK_ATOL:g}); "
+        f"max|d bbox_deltas| {delta_err:.3g} (tol {DELTA_ATOL:g}), {branch}"
         f"same detections selected: {same_dets}; "
         f"valid detections {int(out_k.detections.valid.sum())}")
     check(cls_err <= CLS_ATOL, f"cls_scores differ by {cls_err}")
     check(delta_err <= DELTA_ATOL, f"bbox_deltas differ by {delta_err}")
-    check(mask_err <= MASK_ATOL, f"masks differ by {mask_err}")
+    if cfg.use_mask:
+        check(mask_err <= MASK_ATOL, f"masks differ by {mask_err}")
+    if cfg.keypoint is not None:
+        check_keypoints(kp)
+
+
+def compare_keypoints(params, cfg, feats, boxes, im_scale, plain):
+    """The keypoints of the same boxes through the kernel and through the
+    plain RoIAlign: heatmap logits, argmax bins, then the decode. Where the
+    argmax bins differ, the plain heatmap's value at the kernel's bin must
+    lie within the heatmaps' tolerance of its maximum (a near-tie: bilinear
+    upsampling makes neighbouring bins close)."""
+    import torch
+
+    from detectorch_tpu_torch.models.detector import keypoint_heatmaps
+    from detectorch_tpu_torch.ops.keypoints import heatmaps_to_keypoints
+
+    heat_k = keypoint_heatmaps(params, cfg, feats, boxes, im_scale)
+    heat_p = keypoint_heatmaps(params, cfg, feats, boxes, im_scale, plain)
+    n, s, _, p = heat_p.shape
+    flat_k, flat_p = heat_k.reshape(n, s * s, p), heat_p.reshape(n, s * s, p)
+    bin_k, bin_p = flat_k.argmax(dim=1), flat_p.argmax(dim=1)
+    same = bin_k == bin_p
+    gap = flat_p.amax(dim=1) - torch.gather(flat_p, 1, bin_k[:, None, :])[:, 0]
+    dec_k = heatmaps_to_keypoints(heat_k, boxes.reshape(-1, 4))
+    dec_p = heatmaps_to_keypoints(heat_p, boxes.reshape(-1, 4))
+    return {
+        "heat_err": (heat_k - heat_p).abs().max().item(),
+        "heat_scale": heat_p.abs().max().item(),
+        "count": same.numel(), "same": int(same.sum()),
+        "tie_gap": gap.max().item(),
+        "xy_err": (dec_k[..., :2] - dec_p[..., :2]).abs().amax(dim=-1)[same].max().item(),
+        "logit_err": (dec_k[..., 2] - dec_p[..., 2]).abs().max().item(),
+        "prob_rel": ((dec_k[..., 3] - dec_p[..., 3]).abs() / dec_p[..., 3]).max().item(),
+    }
+
+
+def check_keypoints(kp):
+    tol = KP_HEAT_REL * kp["heat_scale"]
+    check(kp["heat_err"] <= tol, f"keypoint heatmaps differ by {kp['heat_err']}")
+    check(kp["tie_gap"] <= 2 * tol, f"an argmax bin moved by more than a near-tie: {kp}")
+    check(kp["same"] >= 0.99 * kp["count"], f"argmax bins moved at many keypoints: {kp}")
+    check(kp["xy_err"] <= KP_XY_ATOL, f"keypoint x/y differ by {kp['xy_err']} px")
+    check(kp["logit_err"] <= tol, f"keypoint logits differ by {kp['logit_err']}")
+    check(kp["prob_rel"] <= KP_PROB_REL, f"keypoint probabilities differ by {kp['prob_rel']}")
 
 
 def phase_bwd_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
@@ -680,11 +783,14 @@ def phase_bwd_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=2
 
 
 def make_train_batch(rng, batch, height, width, num_classes, rois_per_image, mask_rows,
-                     mask_res, device):
+                     mask_res, device, keypoints=0):
     """A training batch built with numpy from synthetic roidb entries: gt
     boxes, jittered and random proposals, the port's bbox regression
-    targets and the JAX package's roi sampler (JAX-free once targets are
-    set); mask targets are ellipses rasterised in each fg roi's frame."""
+    targets and the port's copy of the roi sampler; mask targets are
+    ellipses rasterised in each fg roi's frame. With `keypoints` > 0, each
+    gt carries that many keypoints inside its box (a fifth unlabelled), and
+    the sampler bins them into kp_labels/kp_valid over the first
+    `mask_rows` rows in place of the mask targets."""
     import numpy as np
     import torch
 
@@ -698,7 +804,8 @@ def make_train_batch(rng, batch, height, width, num_classes, rois_per_image, mas
 
     keys = ("rois", "labels", "bbox_targets", "bbox_inside_weights", "bbox_outside_weights",
             "valid")
-    out = {k: [] for k in keys + ("mask_targets", "mask_valid")}
+    extra = ("kp_labels", "kp_valid") if keypoints else ("mask_targets", "mask_valid")
+    out = {k: [] for k in keys + extra}
     yy, xx = (np.mgrid[:mask_res, :mask_res] + 0.5) / mask_res - 0.5
     for _ in range(batch):
         n_gt = rng.randint(3, 9)
@@ -721,11 +828,20 @@ def make_train_batch(rng, batch, height, width, num_classes, rois_per_image, mas
             is_crowd=np.zeros(len(boxes), np.uint8), max_overlaps=ov.max(1).astype(np.float32),
             max_classes=np.where(ov.max(1) > 0, gt_cls[arg], 0).astype(np.int32),
             box_to_gt_ind_map=np.where(ov.max(1) > 0, arg, -1).astype(np.int32))
+        if keypoints:
+            u = rng.uniform(0, 1, (n_gt, keypoints, 2))
+            kxy = gt[:, None, :2] + u * (gt[:, None, 2:] - gt[:, None, :2])
+            vis = np.where(rng.rand(n_gt, keypoints) < 0.2, 0, 2)
+            entry.gt_keypoints = np.concatenate([kxy, vis[..., None]], -1).astype(np.float32)
         add_bbox_regression_targets([entry])
         blobs = sample_rois(entry, 1.0, rng, SamplerConfig(rois_per_image=rois_per_image),
                             num_classes)
         for k in keys:
             out[k].append(blobs[k])
+        if keypoints:
+            out["kp_labels"].append(blobs["kp_labels"][:mask_rows])
+            out["kp_valid"].append(blobs["kp_valid"][:mask_rows])
+            continue
         fg = blobs["labels"][:mask_rows] > 0
         c = rng.uniform(-0.15, 0.15, (mask_rows, 2, 1, 1))
         r = rng.uniform(0.2, 0.5, (mask_rows, 2, 1, 1))
@@ -738,8 +854,10 @@ def make_train_batch(rng, batch, height, width, num_classes, rois_per_image, mas
 def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
                 rois_per_image=TRAIN_ROIS, mask_rows=TRAIN_MASK_ROWS, card="", tag="7 train",
                 params=None):
-    """The training path through both kernels; returns the launch counts
-    of the three timed steps and the step rate."""
+    """The training path through both kernels, with the mask branch (mask
+    presets) or the keypoint branch (keypoint presets) over `mask_rows`
+    fg-capacity rows; returns the launch counts of the three timed steps and
+    the step rate."""
     import numpy as np
     import torch
 
@@ -757,19 +875,20 @@ def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     # random weights on one fixed batch: at the schedule's LR (0.01) the
     # class loss swings over the first steps; 1e-4 makes it fall steadily
     solver = SolverConfig(base_lr=1e-4, warmup_iters=0)
-    init_state, make_step = make_train_step(cfg, solver, train_mask=True,
+    init_state, make_step = make_train_step(cfg, solver, train_mask=cfg.use_mask,
                                             roi_align_impl=roi_align_impl(cfg))
     state, opt = init_state(params)
     del params
     step = make_step(opt)
     fixed = make_train_batch(np.random.RandomState(0), batch, height, width, cfg.num_classes,
-                             rois_per_image, mask_rows, cfg.mask.resolution, device)
+                             rois_per_image, mask_rows, device=device, **branch_rows(cfg))
     gen = torch.Generator(device=device)
     gen.manual_seed(4)
     fixed["image"] = torch.randn((batch, height, width, 3), generator=gen, device=device) * 50.0
     n_fg = int((fixed["labels"] > 0).sum())
+    rows = "mask" if cfg.use_mask else "keypoint"
     log(f"[{tag}] {cfg.name} compute={cfg.compute_dtype} batch={batch} {height}x{width}, "
-        f"{rois_per_image} rois ({n_fg} fg in all) and {mask_rows} mask rows per image: "
+        f"{rois_per_image} rois ({n_fg} fg in all) and {mask_rows} {rows} rows per image: "
         f"params + batch in {time.perf_counter() - t0:.2f} s")
 
     def sync():
@@ -804,7 +923,7 @@ def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     total, metrics = box_branch_loss(
         state.params, cfg, fixed["image"], fixed["rois"], fixed["labels"],
         fixed["bbox_targets"], fixed["bbox_inside_weights"], fixed["bbox_outside_weights"],
-        fixed["valid"], fixed["mask_targets"], fixed["mask_valid"])
+        fixed["valid"], **branch_extras(fixed))
     loss = total.mean()
     sync()
     stages.append(time.perf_counter() - t0)
@@ -832,13 +951,32 @@ def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
         check(launches == {"roi_align_fwd": 6, "roi_align_bwd": 6},
               f"kernel launches {launches} in 3 steps, expected 2 forward + 2 backward each")
     check(losses[-1] < losses[0], f"loss did not fall over 5 steps: {losses}")
-    if not cfg.use_fpn:
+    if not cfg.use_fpn or cfg.keypoint is not None:
+        size = branch_size(cfg)
         crowd = most_rois_on_a_tile(cfg, batch, height, width, fixed["rois"],
-                                    [(rois_per_image, cfg.roi_size),
-                                     (mask_rows, cfg.mask.roi_size)])
+                                    [(rois_per_image, cfg.roi_size), (mask_rows, size)])
         log(f"[{tag}] most rois on one backward tile: {crowd[0]} (box, {cfg.roi_size}x"
-            f"{cfg.roi_size}), {crowd[1]} (mask rows, {cfg.mask.roi_size}x{cfg.mask.roi_size})")
+            f"{cfg.roi_size}), {crowd[1]} ({rows} rows, {size}x{size})")
     return launches, rate
+
+
+def branch_rows(cfg):
+    """make_train_batch's mask_res and keypoints for cfg's second branch."""
+    if cfg.keypoint is not None:
+        return {"mask_res": 0, "keypoints": cfg.keypoint.num_keypoints}
+    return {"mask_res": cfg.mask.resolution, "keypoints": 0}
+
+
+def branch_size(cfg):
+    """The RoIAlign size of cfg's second branch (mask or keypoint)."""
+    return cfg.keypoint.roi_size if cfg.keypoint is not None else cfg.mask.roi_size
+
+
+def branch_extras(batch):
+    """The mask or keypoint blobs of a host-sampled batch, by their
+    box_branch_loss names."""
+    return {k: batch[k] for k in ("mask_targets", "mask_valid", "kp_labels", "kp_valid")
+            if k in batch}
 
 
 def roi_align_impl(cfg):
@@ -938,18 +1076,18 @@ def phase_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, rois_per_imag
     if params is None:
         params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
     b = make_train_batch(np.random.RandomState(5), 1, height, width, cfg.num_classes,
-                         rois_per_image, mask_rows, cfg.mask.resolution, device)
+                         rois_per_image, mask_rows, device=device, **branch_rows(cfg))
     gen = torch.Generator(device=device)
     gen.manual_seed(6)
     b["image"] = torch.randn((1, height, width, 3), generator=gen, device=device) * 50.0
-    init_state, _ = make_train_step(cfg, SolverConfig(), train_mask=True)
+    init_state, _ = make_train_step(cfg, SolverConfig(), train_mask=cfg.use_mask)
 
     def grads(roi_align):
         state, _ = init_state(params)
         total, _ = box_branch_loss(
             state.params, cfg, b["image"], b["rois"], b["labels"], b["bbox_targets"],
             b["bbox_inside_weights"], b["bbox_outside_weights"], b["valid"],
-            b["mask_targets"], b["mask_valid"], roi_align=roi_align)
+            roi_align=roi_align, **branch_extras(b))
         total.sum().backward()
         return float(total.detach().sum()), {k: v.grad for k, v in state.params.items()
                                     if v.grad is not None}
@@ -1169,14 +1307,17 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
     return launches
 
 
-def make_e2e_batch(rng, orig_sizes, blob_hw, target_size, max_size, gt_range, device):
+def make_e2e_batch(rng, orig_sizes, blob_hw, target_size, max_size, gt_range, device,
+                   keypoints=0, num_classes=81):
     """An e2e training batch in the uint8 schema, made with numpy: uint8
     noise images of `orig_sizes`, padded to one raw bucket, with their
     resize tables and meta (``data.device_input``); per image a number of
     gts in `gt_range`, each a 12-gon with jittered radii whose tight box is
-    the gt box, classes 1-80, and its raster wrt its own box at
+    the gt box, classes 1 to num_classes - 1, and its raster wrt its own box at
     GT_RASTER_RES (``train.sampler.polys_to_mask_wrt_box``), padded to
-    GT_PAD slots as the trainer pads them."""
+    GT_PAD slots as the trainer pads them. With `keypoints` > 0, each gt
+    also carries that many keypoints inside its box, input-scaled, a fifth
+    unlabelled (v = 0), as gt_keypoints (B, GT_PAD, keypoints, 3)."""
     import numpy as np
     import torch
 
@@ -1189,6 +1330,8 @@ def make_e2e_batch(rng, orig_sizes, blob_hw, target_size, max_size, gt_range, de
               max(-(-w // RAW_STRIDE) * RAW_STRIDE for _, w in orig_sizes))
     out = {k: [] for k in ("raw", "tables", "meta", "gt_boxes", "gt_classes", "gt_valid",
                            "gt_masks", "gt_mask_valid")}
+    if keypoints:
+        out["gt_keypoints"] = []
     for h, w in orig_sizes:
         raw, m = prepare_raw(rng.randint(0, 256, (h, w, 3)).astype(np.uint8), target_size,
                              max_size, buckets=(blob_hw,))
@@ -1208,9 +1351,17 @@ def make_e2e_batch(rng, orig_sizes, blob_hw, target_size, max_size, gt_range, de
             masks[j] = polys_to_mask_wrt_box([np.stack([px, py], 1).reshape(-1)], box,
                                              GT_RASTER_RES)
             boxes[j] = box * m["scale"]
+        if keypoints:
+            kxy = boxes[:, None, :2] + rng.uniform(0, 1, (GT_PAD, keypoints, 2)) \
+                * (boxes[:, None, 2:] - boxes[:, None, :2])
+            vis = np.where(rng.rand(GT_PAD, keypoints) < 0.2, 0.0, 2.0)
+            vis[n:] = 0.0
+            out["gt_keypoints"].append(
+                np.concatenate([kxy, vis[..., None]], -1).astype(np.float32))
         valid = np.arange(GT_PAD) < n
         for k, v in (("raw", padded), ("tables", tables), ("meta", meta), ("gt_boxes", boxes),
-                     ("gt_classes", np.where(valid, rng.randint(1, 81, GT_PAD), 0).astype(np.int32)),
+                     ("gt_classes",
+                      np.where(valid, rng.randint(1, num_classes, GT_PAD), 0).astype(np.int32)),
                      ("gt_valid", valid), ("gt_masks", masks), ("gt_mask_valid", valid)):
             out[k].append(v)
     return {k: torch.from_numpy(np.stack(v)).to(device) for k, v in out.items()}
@@ -1261,8 +1412,9 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
                     target_size=800, max_size=1333, rois_per_image=TRAIN_ROIS, pre=TRAIN_PRE,
                     post=TRAIN_POST, gt_range=(3, 20), card="", tag="10 e2e", params=None,
                     profiled=True):
-    """The e2e Mask R-CNN step through both kernels, in the uint8 schema;
-    returns the launch counts of the three timed steps and the step rate."""
+    """The e2e Mask (or Keypoint) R-CNN step through both kernels, in the
+    uint8 schema; returns the launch counts of the three timed steps and the
+    step rate."""
     import numpy as np
     import torch
 
@@ -1282,14 +1434,18 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
     # random weights on one fixed batch: as in phase 7, 1e-4 makes the loss fall
     solver = SolverConfig(base_lr=1e-4, warmup_iters=0)
     sampler = SamplerConfig(rois_per_image=rois_per_image)
+    kps = cfg.keypoint is not None
     init_state, make_step = make_e2e_train_step(
-        cfg, solver, sampler, seed=0, train_pre_nms=pre, train_post_nms=post, train_mask=True,
-        device_input=True, blob_hw=(height, width), roi_align_impl=roi_align_impl(cfg))
+        cfg, solver, sampler, seed=0, train_pre_nms=pre, train_post_nms=post,
+        train_mask=cfg.use_mask, train_keypoints=kps, device_input=True,
+        blob_hw=(height, width), roi_align_impl=roi_align_impl(cfg))
     state, opt = init_state(params)
     del params
     step = make_step(opt)
     fixed = make_e2e_batch(np.random.RandomState(10), sizes, (height, width), target_size,
-                           max_size, gt_range, device)
+                           max_size, gt_range, device,
+                           keypoints=cfg.keypoint.num_keypoints if kps else 0,
+                           num_classes=cfg.num_classes)
     n_gt = fixed["gt_valid"].sum(dim=1).tolist()
     log(f"[{tag}] {cfg.name} compute={cfg.compute_dtype} batch={batch} in {height}x{width}, "
         f"uint8 input (raw {tuple(fixed['raw'].shape[1:3])}), gts per image {n_gt} of "
@@ -1336,8 +1492,7 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
         state.params, cfg, sampler, images, fixed["gt_boxes"], fixed["gt_classes"],
         fixed["gt_valid"], fixed["meta"][:, 2:5],
         lambda na, nc: draw(state.step, batch, na, nc, device), train_pre_nms=pre,
-        train_post_nms=post, extras={"gt_masks": fixed["gt_masks"],
-                                     "gt_mask_valid": fixed["gt_mask_valid"]}, stage=mark)
+        train_post_nms=post, extras=e2e_extras(cfg, fixed), stage=mark)
     loss = total.mean()
     loss.backward()
     mark("backward")
@@ -1348,13 +1503,14 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
     last["loss"] = float(loss.detach())
     check(all(np.isfinite(v) for v in last.values()), f"non-finite metrics {last}")
     check({"loss_cls", "loss_bbox", "loss_rpn_cls", "loss_rpn_bbox", "accuracy",
-           "loss_mask"} <= set(last), f"metrics {sorted(last)}")
+           "loss_kps" if kps else "loss_mask"} <= set(last), f"metrics {sorted(last)}")
     losses.append(last["loss"])
 
     # how the sampled rois crowd the backward kernel's tiles
     fg_rows = int(round(sampler.fg_fraction * rois_per_image))
+    size = branch_size(cfg)
     crowd = most_rois_on_a_tile(cfg, batch, height, width, sampled.rois,
-                                [(rois_per_image, cfg.roi_size), (fg_rows, cfg.mask.roi_size)])
+                                [(rois_per_image, cfg.roi_size), (fg_rows, size)])
     n_fg = (sampled.labels > 0).sum(dim=1).tolist()
 
     profile = profile_step(run, device) if device.type == "cuda" and profiled else None
@@ -1368,8 +1524,8 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
         + f"; total {sum(ms for _, ms in stages):.1f}")
     log(f"[{tag}] step 5 sample: fg rois per image {n_fg}, valid rois per image "
         f"{sampled.valid.sum(dim=1).tolist()}; most rois on one backward tile: {crowd[0]} (box, "
-        f"{cfg.roi_size}x{cfg.roi_size}), {crowd[1]} (mask rows, "
-        f"{cfg.mask.roi_size}x{cfg.mask.roi_size})")
+        f"{cfg.roi_size}x{cfg.roi_size}), {crowd[1]} ({'keypoint' if kps else 'mask'} rows, "
+        f"{size}x{size})")
     log(f"[{tag}] loss over 5 steps on one batch: {', '.join(f'{v:.4f}' for v in losses)}; "
         f"step 5 {', '.join(f'{k} {v:.4f}' for k, v in last.items())}")
     if profile:
@@ -1382,6 +1538,14 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
               f"kernel launches {launches} in 3 steps, expected 2 forward + 2 backward each")
     check(losses[-1] < losses[0], f"loss did not fall over 5 steps: {losses}")
     return launches, rate
+
+
+def e2e_extras(cfg, batch):
+    """The e2e step's extras: the gt masks (mask presets) or the gt
+    keypoints (keypoint presets) of a make_e2e_batch batch."""
+    if cfg.keypoint is not None:
+        return {"gt_keypoints": batch["gt_keypoints"]}
+    return {"gt_masks": batch["gt_masks"], "gt_mask_valid": batch["gt_mask_valid"]}
 
 
 def phase_e2e_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZES[:1],
@@ -1730,6 +1894,342 @@ def phase_c4(device, smi):
     return {"kernels": kernels, "launches": launches}
 
 
+# --- Keypoint R-CNN: e2e_keypoint_rcnn_R-50-FPN_1x ------------------------
+
+KP_PRESET = "e2e_keypoint_rcnn_R-50-FPN_1x"
+# eval: person-keypoints images made by data/synth at a COCO size
+KP_EVAL_IMAGES, KP_EVAL_HW = 24, (480, 640)
+
+
+def phase_kp_stages(device, params, cfg, batch=BATCH, height=HEIGHT, width=WIDTH,
+                    test_cfg=None):
+    """One keypoint request split by stage, a synchronise after each:
+    backbone + neck, RPN + proposals, box RoIAlign + fc6/fc7 + predictors,
+    postprocess, keypoint RoIAlign, keypoint trunk + deconv + upsample,
+    decode. Returns the stages and the keypoint call's RoIAlign inputs (the
+    pyramid and the (B, K, 4) scaled detection boxes)."""
+    import torch
+
+    from detectorch_tpu_torch.config import TestConfig
+    from detectorch_tpu_torch.eval.postprocess import postprocess_detections
+    from detectorch_tpu_torch.models import heads as heads_mod
+    from detectorch_tpu_torch.models.detector import (
+        backbone_features,
+        blob_bounds,
+        box_head,
+        compute_dtype,
+        roi_features,
+        rpn_proposals,
+    )
+    from detectorch_tpu_torch.ops.keypoints import heatmaps_to_keypoints
+
+    test_cfg = test_cfg or TestConfig()
+    kcfg = cfg.keypoint
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    images, scale, orig_h, orig_w = _batch(gen, batch, height, width, device)
+    marks = []
+
+    def mark(name):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        marks.append((name, time.perf_counter()))
+
+    with torch.inference_mode():
+        mark("start")
+        feats = backbone_features(params, cfg, images)
+        mark("backbone + neck")
+        im_h, im_w = blob_bounds(cfg, images.shape[1:3], scale, orig_h, orig_w)
+        props = rpn_proposals(params, cfg, feats, im_h, im_w, scale, {})
+        mark("rpn + proposals")
+        n = props.boxes.shape[1]
+        box = box_head(params, cfg, roi_features(cfg, feats, props.boxes, cfg.roi_size)
+                       .reshape(batch * n, cfg.roi_size, cfg.roi_size, -1))
+        cls, deltas = heads_mod.box_predictors(params, box, dtype=compute_dtype(cfg))
+        mark("box roialign + fc6/fc7")
+        dets = postprocess_detections(cls.reshape(batch, n, -1), deltas.reshape(batch, n, -1),
+                                      props.boxes, props.valid, scale, orig_h, orig_w,
+                                      test_cfg, cfg.num_classes)
+        mark("postprocess")
+        kp_rois = dets.boxes * scale[:, None, None]
+        x = roi_features(cfg, feats, kp_rois, kcfg.roi_size)
+        mark("keypoint roialign")
+        heat = heads_mod.keypoint_head(
+            params, x.reshape(-1, kcfg.roi_size, kcfg.roi_size, x.shape[-1])
+            .to(compute_dtype(cfg)), kcfg.num_convs)
+        mark("keypoint trunk + deconv + upsample")
+        heatmaps_to_keypoints(heat, dets.boxes.reshape(-1, 4))
+        mark("decode")
+    stages = [(name, (t - marks[i][1]) * 1e3) for i, (name, t) in enumerate(marks[1:])]
+    return stages, (feats, kp_rois)
+
+
+def fwd_call_row(feats, rois, cfg, what, tag, timing=True):
+    """The forward kernel on one call site's inputs, (B, N, 4) rois over the
+    pyramid `feats`, against the plain gather form: error, times, bound."""
+    import torch
+
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
+    from detectorch_tpu_torch.ops.fpn_levels import map_rois_to_fpn_levels
+    from detectorch_tpu_torch.ops.roi_align import multilevel_roi_align
+
+    bsz, n = rois.shape[:2]
+    pooled = cfg.keypoint.roi_size
+    flat = rois.reshape(-1, 4).float().contiguous()
+    levels = (map_rois_to_fpn_levels(flat) - 2).to(torch.int32).contiguous()
+    bidx = torch.arange(bsz, dtype=torch.int32, device=flat.device).repeat_interleave(n)
+    args = ([f.contiguous() for f in feats], flat, bidx, levels, cfg.fpn_spatial_scales,
+            pooled, pooled, cfg.roi_sampling_ratio)
+    got = roi_align_fwd(*args)
+    ref = multilevel_roi_align(*args)
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    row = {"call": f"{what} {str(feats[0].dtype)[6:]} {pooled}x{pooled} {bsz * n} rois",
+           "max_abs_err": err, "max_rel_err": err / scale}
+    msg = (f"[{tag}] fwd kernel at the {what}: {bsz}x{n} rois at {pooled}x{pooled}, "
+           f"{str(feats[0].dtype)[6:]} pyramid: max|kernel - plain| = {err:.3g} = "
+           f"{err / scale:.3g} of max|plain| {scale:.3g} (tol {C4_FWD_REL:g})")
+    if timing:
+        ms = cuda_time_ms(lambda: roi_align_fwd(*args), iters=20)
+        plain_ms = cuda_time_ms(lambda: multilevel_roi_align(*args), iters=3, warmup=1)
+        bound_ms, bound_by = fwd_bound(args[0], flat, bidx, levels, args[4], pooled)
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                f"({bound_by}), share {bound_ms / ms:.3f}")
+    log(msg)
+    # the model's features are far from phase 3's unit normals: hold the
+    # kernel to the plain version relative to the output's scale, as the C4
+    # call (fp32 sums of <= 16 taps in another order: an ulp or so)
+    check(err <= C4_FWD_REL * scale, f"forward kernel disagrees at the {what}: {err}")
+    return row
+
+
+def bwd_call_row(shapes, rois, cfg, what, tag, timing=True):
+    """The backward kernel on one call site's rois, (B, N, 4) over a
+    pyramid of `shapes`, with a random fp32 g, against the plain backward:
+    error (of max|plain|), bitwise repeat, times of the bf16 gradient (the
+    training path's), bound."""
+    import torch
+
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd
+    from detectorch_tpu_torch.ops.fpn_levels import map_rois_to_fpn_levels
+    from detectorch_tpu_torch.ops.roi_align import multilevel_roi_align_backward
+
+    bsz, n = rois.shape[:2]
+    pooled = cfg.keypoint.roi_size
+    flat = rois.reshape(-1, 4).float().contiguous()
+    levels = (map_rois_to_fpn_levels(flat) - 2).to(torch.int32).contiguous()
+    bidx = torch.arange(bsz, dtype=torch.int32, device=flat.device).repeat_interleave(n)
+    gen = torch.Generator(device=flat.device)
+    gen.manual_seed(17)
+    g = torch.randn((bsz * n, pooled, pooled, shapes[0][-1]), generator=gen,
+                    device=flat.device)
+    args = (g, shapes, flat, bidx, levels, cfg.fpn_spatial_scales, pooled, pooled,
+            cfg.roi_sampling_ratio)
+    ref = multilevel_roi_align_backward(*args)
+    got = roi_align_bwd(*args)
+    same = all(torch.equal(a, b) for a, b in zip(got, roi_align_bwd(*args)))
+    scale = max(r.abs().max().item() for r in ref)
+    err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+    row = {"call": f"{what} bf16 out {pooled}x{pooled} {bsz * n} rois", "max_abs_err": err,
+           "max_rel_err": err / scale}
+    msg = (f"[{tag}] bwd kernel at the {what}: {bsz}x{n} rows at {pooled}x{pooled}: "
+           f"max|kernel - plain| = {err:.3g} = {err / scale:.3g} of max|plain| (tol "
+           f"{BWD_REL:g}); two launches equal: {same}")
+    if timing:
+        dtype = torch.bfloat16
+        ms = cuda_time_ms(lambda: roi_align_bwd(*args, out_dtype=dtype), iters=20)
+        plain_ms = cuda_time_ms(lambda: multilevel_roi_align_backward(*args, out_dtype=dtype),
+                                iters=3, warmup=1)
+        bound_ms, bound_by = bwd_bound(shapes, flat, bidx, levels, args[5], pooled, dtype)
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        msg += (f"; bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), share {bound_ms / ms:.3f}")
+    log(msg)
+    check(err <= BWD_REL * scale, f"backward kernel disagrees at the {what}: {err}")
+    check(same, f"two launches of the backward kernel differ at the {what}")
+    return row
+
+
+def compare_keypoint_results(a, b):
+    """Two engines' COCO keypoint results of the same images: each result of
+    `a` paired with the unpaired one of `b` of its image whose keypoints lie
+    nearest (the order of near-tied scores may differ); per keypoint, x and
+    y within 1e-3 px, or, where a near-tied heatmap argmax moved, within two
+    bins (2/56 of the keypoints' extent, plus 1 px). Returns (pairs,
+    keypoints, moved, max|d| of the others, unmatched results)."""
+    import numpy as np
+
+    by_image = {}
+    for r in b:
+        by_image.setdefault(r["image_id"], []).append(np.reshape(r["keypoints"], (-1, 3)))
+    pairs = keypoints = moved = unmatched = 0
+    max_err = 0.0
+    for r in a:
+        ka = np.reshape(r["keypoints"], (-1, 3))
+        cands = by_image.get(r["image_id"], [])
+        if not cands:
+            unmatched += 1
+            continue
+        d = [np.abs(c - ka)[:, :2].max(axis=1) for c in cands]
+        j = int(np.argmin([x.sum() for x in d]))
+        extent = np.ptp(ka[:, :2], axis=0).max() + 1.0
+        far = d[j] > 1e-3
+        if (d[j] > 2 * extent / 56 + 1e-3).any():
+            unmatched += 1
+            continue
+        cands.pop(j)
+        pairs += 1
+        keypoints += len(ka)
+        moved += int(far.sum())
+        if (~far).any():
+            max_err = max(max_err, float(d[j][~far].max()))
+    return pairs, keypoints, moved, max_err, unmatched
+
+
+def phase_kp_eval(device, cfg, card="", images=KP_EVAL_IMAGES, hw=KP_EVAL_HW, batch=BATCH,
+                  parity_images=PARITY_IMAGES, tag="18 kp eval", test_cfg=None):
+    """COCO keypoint evaluation of a person-keypoints set made by the port's
+    data/synth copy (PNG files, read by evaluate_dataset's own loader),
+    batched with on-device preprocessing; then the batched engine against
+    the single-image engine in fp32. Returns the forward kernel's launches
+    in the timed run."""
+    import collections
+    import functools
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+    from detectorch_tpu_torch.config import TestConfig
+    from detectorch_tpu_torch.data.coco import CocoDataset
+    from detectorch_tpu_torch.data.synth import build_synth_coco
+    from detectorch_tpu_torch.eval.engine import evaluate_dataset
+    from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
+
+    # random weights score the person class near 1/2: score_thresh 0 keeps
+    # every detection slot
+    test_cfg = test_cfg or TestConfig(score_thresh=0.0, device_preprocess=True)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ann, imdir = build_synth_coco(root, n_images=images, height=hw[0], width=hw[1], seed=0,
+                                      with_keypoints=True)
+        ds = CocoDataset(ann, imdir)
+        roidb = ds.get_roidb(gt=False)
+        params = params_from_jax(init_params(cfg, seed=0))
+        n_kp = sum(a.get("num_keypoints", 0) > 0 for a in ds.coco.anns.values())
+        log(f"[{tag}] {len(roidb)} person-keypoints images at {hw[0]}x{hw[1]} from data/synth, "
+            f"{len(ds.coco.anns)} gt persons ({n_kp} with keypoints); set-up "
+            f"{time.perf_counter() - t0:.2f} s")
+        engines = {}
+        run = functools.partial(evaluate_dataset, cfg, test_cfg, params, ds, verbose=False,
+                                batch_size=batch, engines=engines, device=device)
+        t0 = time.perf_counter()
+        run(roidb=roidb[:1])
+        log(f"[{tag}] warm-up (one short batch): {time.perf_counter() - t0:.2f} s")
+        roi_align_fwd.launches = 0
+        t0 = time.perf_counter()
+        bbox_stats, _, info = run(roidb=roidb)
+        launches = roi_align_fwd.launches
+        wall = time.perf_counter() - t0
+        engines.clear()
+        n_batches = math.ceil(len(roidb) / batch)
+        per_image = collections.Counter(r["image_id"] for r in info["keypoints"])
+        kstats = info["keypoints_stats"]
+        split = " ".join(f"{k}={v:.3f}s" for k, v in info["phase_seconds"].items())
+        log(f"[{tag}] {cfg.name} compute={cfg.compute_dtype} batch={batch}, device "
+            f"preprocess: {info['images_per_sec']:.2f} img/s end to end on {card or device} "
+            f"(loop split: {split}); evaluate_dataset {wall:.2f} s with COCOeval; kernel "
+            f"launches {launches} in {n_batches} batches")
+        check(sorted(per_image) == sorted(e.image_id for e in roidb),
+              f"an image has no keypoint result: {per_image}")
+        check(len(info["keypoints"]) == len(info["bbox"]), "keypoints and boxes differ in number")
+        check(all(len(r["keypoints"]) == 3 * cfg.keypoint.num_keypoints
+                  and np.isfinite(r["keypoints"]).all() for r in info["keypoints"]),
+              "a keypoint result is not 17 finite [x, y, v]")
+        check(kstats is not None and len(kstats) == 10 and bool(np.isfinite(kstats).all()),
+              f"COCOeval keypoint stats are not 10 finite numbers: {kstats}")
+        check(bbox_stats is not None and len(bbox_stats) == 12, "no bbox stats")
+        log(f"[{tag}] keypoint results per image {min(per_image.values())}-"
+            f"{max(per_image.values())}; OKS stats (random weights: they show the path runs) "
+            + " ".join(f"{v:.4f}" for v in kstats) + f"; bbox AP {bbox_stats[0]:.4f}")
+        if device.type == "cuda":
+            check(launches == 2 * n_batches,
+                  f"RoIAlign kernel launched {launches} times in {n_batches} batches, "
+                  "expected 2 each")
+
+        # fp32, TF32 off: the batched engine's results equal the single-image
+        # engine's. Random weights score the person class near 1/2, so scores
+        # tie within fp32 rounding and the engines may list them in either
+        # order: boxes pair within 1e-5 of score, keypoints by position
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        run32 = functools.partial(evaluate_dataset, cfg.replace(compute_dtype="float32"),
+                                  test_cfg, params, ds, roidb=roidb[:parity_images],
+                                  verbose=False, engines={}, device=device)
+        _, _, single = run32(batch_size=1)
+        _, _, batched = run32(batch_size=parity_images)
+        diff, max_box, swapped = compare_results(single, batched, tie=1e-5)
+        pairs, kps, moved, kp_err, unmatched = compare_keypoint_results(single["keypoints"],
+                                                                        batched["keypoints"])
+        log(f"[{tag}] fp32 parity, first {parity_images} images, batched (batch "
+            f"{parity_images}) vs single-image engine: {len(single['bbox'])} detections; box "
+            f"differences {diff}, max|d box| {max_box:.3g}, {swapped} near-tied pairs in the "
+            f"other order; keypoints: {pairs} results paired, {unmatched} unmatched; {moved} of "
+            f"{kps} keypoints on a near-tied bin, the rest within {kp_err:.3g} px (tol 1e-3)")
+        check(not any(diff.values()), f"batched and single-image boxes differ: {diff}")
+        check(unmatched == 0 and pairs == len(batched["keypoints"]),
+              f"keypoint results do not pair: {unmatched} unmatched")
+        check(moved <= 0.01 * kps, f"{moved} of {kps} keypoints moved a bin")
+    return launches
+
+
+def phase_kp(device, smi):
+    """Phases 17-21, Keypoint R-CNN (e2e_keypoint_rcnn_R-50-FPN_1x, bf16,
+    batch 8, 832x1344, full width and depth: 8 convs of 512, 17 keypoints,
+    56x56 heatmaps, init_params(seed 0)); returns the launch counts of each
+    path's timed run and the kernel rows at the keypoint call sites."""
+    import numpy as np
+    import torch
+
+    from detectorch_tpu_torch.config import PRESETS
+
+    cfg = PRESETS[KP_PRESET]
+    launches, calls = {}, {"fwd": [], "bwd": []}
+    infer, _, params = phase_main_path(device, cfg=cfg, card=smi, tag="17 kp main")
+    launches["keypoint_inference"] = {"roi_align_fwd": infer, "roi_align_bwd": 0}
+    stages, (feats, kp_rois) = phase_kp_stages(device, params, cfg)
+    log("[17 kp main] request in stages (ms): "
+        + ", ".join(f"{name} {ms:.1f}" for name, ms in stages)
+        + f"; total {sum(ms for _, ms in stages):.1f}")
+    calls["fwd"].append(fwd_call_row(feats, kp_rois, cfg, "keypoint call", "17 kp main",
+                                     timing=device.type == "cuda"))
+    shapes = [tuple(f.shape) for f in feats]
+    del feats, kp_rois
+    phase_fp32_parity(device, params, cfg=cfg, tag="17 kp fp32", images=2)
+    del params
+    torch.cuda.empty_cache()
+    launches["keypoint_eval"] = {"roi_align_fwd": phase_kp_eval(device, cfg, card=smi),
+                                 "roi_align_bwd": 0}
+    torch.cuda.empty_cache()
+    launches["keypoint_training"], _ = phase_train(device, cfg=cfg, card=smi, tag="19 kp train")
+    rows = make_train_batch(np.random.RandomState(0), BATCH, HEIGHT, WIDTH, cfg.num_classes,
+                            TRAIN_ROIS, TRAIN_MASK_ROWS, device=device, **branch_rows(cfg))["rois"]
+    calls["bwd"].append(bwd_call_row(shapes, rows[:, :TRAIN_MASK_ROWS], cfg,
+                                     "keypoint training call", "19 kp train",
+                                     timing=device.type == "cuda"))
+    torch.cuda.empty_cache()
+    launches["keypoint_e2e_training"], _ = phase_e2e_train(device, cfg=cfg, card=smi,
+                                                           tag="20 kp e2e", profiled=False)
+    torch.cuda.empty_cache()
+    phase_fp32_grads(device, cfg=cfg, tag="21 kp fp32 grads")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "calls": calls}
+
+
 def main() -> int:
     import torch
 
@@ -1757,6 +2257,7 @@ def main() -> int:
     e2e_launches, _ = phase_e2e_train(device, card=smi)
     phase_e2e_fp32_grads(device)
     c4 = phase_c4(device, smi)
+    kp = phase_kp(device, smi)
     source = "detectorch_tpu_torch/csrc"
     replaces = "detectorch_tpu/ops/pallas/roi_align_kernel.py"
     kernels = [{
@@ -1769,15 +2270,17 @@ def main() -> int:
                              "training": train_launches["roi_align_fwd"],
                              "eval": eval_launches,
                              "e2e_training": e2e_launches["roi_align_fwd"],
-                             **{k: v["roi_align_fwd"] for k, v in c4["launches"].items()}},
+                             **{k: v["roi_align_fwd"] for k, v in c4["launches"].items()},
+                             **{k: v["roi_align_fwd"] for k, v in kp["launches"].items()}},
         "max_abs_err": summary["max_abs_err"],
         "c4_max_abs_err": c4["kernels"]["fwd_err"],
+        "keypoint_max_abs_err": max(r["max_abs_err"] for r in kp["calls"]["fwd"]),
         "ms": summary["ms"],
         "plain_ms": summary["plain_ms"],
         "bound_ms": summary["bound_ms"],
         "bound_by": summary["bound_by"],
         "library_ms": None,  # no PyTorch call computes caffe2 RoIAlign
-        "calls": summary["calls"] + c4["kernels"]["fwd_calls"],
+        "calls": summary["calls"] + c4["kernels"]["fwd_calls"] + kp["calls"]["fwd"],
     }, {
         "name": "roi_align_bwd",
         "route": "cuda",
@@ -1787,15 +2290,18 @@ def main() -> int:
         "launches_by_path": {"training": train_launches["roi_align_bwd"],
                              "e2e_training": e2e_launches["roi_align_bwd"],
                              **{k: v["roi_align_bwd"] for k, v in c4["launches"].items()
+                                if "training" in k},
+                             **{k: v["roi_align_bwd"] for k, v in kp["launches"].items()
                                 if "training" in k}},
         "max_abs_err": bwd_summary["max_abs_err"],
         "c4_max_abs_err": c4["kernels"]["bwd_err"],
+        "keypoint_max_abs_err": max(r["max_abs_err"] for r in kp["calls"]["bwd"]),
         "ms": bwd_summary["ms"],
         "plain_ms": bwd_summary["plain_ms"],
         "bound_ms": bwd_summary["bound_ms"],
         "bound_by": bwd_summary["bound_by"],
         "library_ms": None,  # nor its feature gradient
-        "calls": bwd_summary["calls"] + c4["kernels"]["bwd_calls"],
+        "calls": bwd_summary["calls"] + c4["kernels"]["bwd_calls"] + kp["calls"]["bwd"],
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))

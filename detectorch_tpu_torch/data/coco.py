@@ -11,9 +11,8 @@ structures ready for device transfer: images padded to shape buckets,
 proposals padded to a static count with validity masks.
 
 The port's own copy of ``detectorch_tpu/data/coco.py``, held to it by
-tests/test_torch_host_copies.py, without the keypoint annotations (gt
-keypoints, their flip and the keypoint filter), which wait for the keypoint
-branch's port.
+tests/test_torch_host_copies.py: the same code, keypoint annotations
+included, with the port's imports.
 """
 
 from __future__ import annotations
@@ -78,6 +77,10 @@ class RoidbEntry:
     segms: List[object] = field(default_factory=list)
     flipped: bool = False
     bbox_targets: Optional[np.ndarray] = None  # (N, 5) [cls, tx, ty, tw, th]
+    # (G, P, 3) [x, y, v] per GT box (keypoint-major; the reference stores
+    # the (3, P) transpose per object, json_dataset.py:297-314); None when
+    # the dataset has no keypoint annotations
+    gt_keypoints: Optional[np.ndarray] = None
 
     @property
     def num_gt(self) -> int:
@@ -97,6 +100,40 @@ class CocoDataset:
         self.num_classes = len(self.classes)
         self.json_to_contiguous = {v: i + 1 for i, v in enumerate(cat_ids)}
         self.contiguous_to_json = {v: k for k, v in self.json_to_contiguous.items()}
+        self._init_keypoints()
+
+    def _init_keypoints(self):
+        """Keypoint metadata for person-keypoint datasets
+        (reference json_dataset.py:268-296)."""
+        self.keypoints = None
+        self.keypoint_flip_map = None
+        self.num_keypoints = 0
+        for cat in self.coco.cats.values():
+            if cat.get("name") == "person" and "keypoints" in cat:
+                self.keypoints = list(cat["keypoints"])
+                self.num_keypoints = len(self.keypoints)
+                self.keypoint_flip_map = {
+                    "left_eye": "right_eye", "left_ear": "right_ear",
+                    "left_shoulder": "right_shoulder",
+                    "left_elbow": "right_elbow", "left_wrist": "right_wrist",
+                    "left_hip": "right_hip", "left_knee": "right_knee",
+                    "left_ankle": "right_ankle",
+                }
+                break
+
+    @property
+    def keypoint_flip_perm(self) -> Optional[np.ndarray]:
+        """(P,) index permutation swapping left/right keypoints under a
+        horizontal flip (identity for unpaired ones like 'nose')."""
+        if not self.num_keypoints:
+            return None
+        perm = np.arange(self.num_keypoints)
+        idx = {n: i for i, n in enumerate(self.keypoints)}
+        for a, b in self.keypoint_flip_map.items():
+            if a in idx and b in idx:
+                perm[idx[a]] = idx[b]
+                perm[idx[b]] = idx[a]
+        return perm
 
     def image_path(self, img: dict) -> str:
         return os.path.join(self.image_directory, img["file_name"])
@@ -143,7 +180,7 @@ class CocoDataset:
 
     def _add_gt(self, e: RoidbEntry):
         """reference json_dataset.py:149-235."""
-        boxes, classes, crowd, segms, areas = [], [], [], [], []
+        boxes, classes, crowd, segms, kps, areas = [], [], [], [], [], []
         for obj in self.coco.load_anns_for_image(e.image_id):
             segm = obj.get("segmentation")
             if isinstance(segm, list):
@@ -161,6 +198,19 @@ class CocoDataset:
                 crowd.append(obj.get("iscrowd", 0))
                 segms.append(segm)
                 areas.append(obj["area"])
+                if self.num_keypoints:
+                    k = obj.get("keypoints")
+                    # the reference stores gt keypoints in an int32 array
+                    # (json_dataset.py:297-314 via the np.int32 gt_keypoints
+                    # buffer), truncating any fractional coordinate toward
+                    # zero; real COCO keypoints are integers so this only
+                    # bites synthetic data — match it exactly
+                    kps.append(
+                        np.asarray(k, np.float64).reshape(-1, 3)
+                        .astype(np.int32).astype(np.float32)
+                        if k is not None
+                        else np.zeros((self.num_keypoints, 3), np.float32)
+                    )
         n = len(boxes)
         e.boxes = np.asarray(boxes, np.float32).reshape(n, 4)
         e.gt_classes = np.asarray(classes, np.int32)
@@ -168,6 +218,10 @@ class CocoDataset:
         e.box_to_gt_ind_map = np.arange(n, dtype=np.int32)
         e.seg_areas = np.asarray(areas, np.float32)
         e.segms = segms
+        if self.num_keypoints:
+            e.gt_keypoints = np.stack(kps) if kps else np.zeros(
+                (0, self.num_keypoints, 3), np.float32
+            )
 
     def _gt_overlap_matrix(self, e: RoidbEntry) -> np.ndarray:
         """(N, num_classes) gt_overlaps: 1.0 at own class for gt boxes,
@@ -294,8 +348,35 @@ def flip_segms(segms, height: int, width: int):
     return out
 
 
-def extend_with_flipped_entries(roidb: List[RoidbEntry]) -> List[RoidbEntry]:
-    """reference roidb.py:103-135."""
+def flip_keypoints(kps: np.ndarray, flip_perm: np.ndarray,
+                   width: int) -> np.ndarray:
+    """Horizontal flip of (G, P, 3) gt keypoints: left/right pairs swap via
+    `flip_perm` (CocoDataset.keypoint_flip_perm), visible x mirror to
+    width - x - 1, unlabeled (v == 0) keypoints zeroed (upstream Detectron
+    keypoint_utils.flip_keypoints semantics — a stale nonzero x on an
+    unlabeled keypoint must not survive the flip)."""
+    out = kps[:, flip_perm].copy()
+    vis = out[:, :, 2] > 0
+    out[:, :, 0] = np.where(vis, width - out[:, :, 0] - 1, 0.0)
+    return out
+
+
+def extend_with_flipped_entries(
+    roidb: List[RoidbEntry],
+    keypoint_flip_perm: Optional[np.ndarray] = None,
+) -> List[RoidbEntry]:
+    """reference roidb.py:103-135. Pass the dataset's keypoint_flip_perm
+    for keypoint datasets so flipped entries swap left/right keypoints;
+    a keypoint roidb WITHOUT a perm is refused rather than silently
+    producing unmirrored keypoints on flipped entries."""
+    if keypoint_flip_perm is None and any(
+        e.gt_keypoints is not None for e in roidb
+    ):
+        raise ValueError(
+            "roidb carries gt_keypoints: pass keypoint_flip_perm "
+            "(CocoDataset.keypoint_flip_perm) so flipped entries mirror "
+            "them — flipping boxes but not keypoints corrupts training"
+        )
     flipped = []
     for e in roidb:
         boxes = e.boxes.copy()
@@ -316,6 +397,11 @@ def extend_with_flipped_entries(roidb: List[RoidbEntry]) -> List[RoidbEntry]:
             seg_areas=e.seg_areas,
             segms=flip_segms(e.segms, e.height, e.width),
             flipped=True,
+            gt_keypoints=(
+                flip_keypoints(e.gt_keypoints, keypoint_flip_perm, e.width)
+                if e.gt_keypoints is not None and keypoint_flip_perm is not None
+                else e.gt_keypoints
+            ),
         )
         flipped.append(f)
     return roidb + flipped
@@ -326,14 +412,23 @@ def filter_for_training(
     fg_thresh: float = 0.5,
     bg_thresh_hi: float = 0.5,
     bg_thresh_lo: float = 0.0,
+    require_keypoints: bool = False,
 ) -> List[RoidbEntry]:
-    """reference roidb.py:138-167."""
+    """reference roidb.py:138-167. require_keypoints additionally drops
+    entries with no labeled gt keypoint (upstream Detectron
+    roidb.py is_valid when cfg.MODEL.KEYPOINTS_ON)."""
 
     def valid(e: RoidbEntry) -> bool:
         ov = e.max_overlaps
         fg = np.sum(ov >= fg_thresh)
         bg = np.sum((ov < bg_thresh_hi) & (ov >= bg_thresh_lo))
-        return fg > 0 or bg > 0
+        ok = fg > 0 or bg > 0
+        if ok and require_keypoints:
+            ok = (
+                e.gt_keypoints is not None
+                and (e.gt_keypoints[:, :, 2] > 0).any()
+            )
+        return ok
 
     return [e for e in roidb if valid(e)]
 
@@ -373,6 +468,7 @@ def roidb_for_training(
     bg_thresh_lo: float = 0.0,
     bbox_thresh: float = 0.5,
     bbox_reg_weights=(10.0, 10.0, 5.0, 5.0),
+    require_keypoints: bool = False,
 ) -> Tuple[CocoDataset, List[RoidbEntry]]:
     """reference roidb.py:44-100."""
     ds = CocoDataset(annotation_file, image_directory)
@@ -380,7 +476,8 @@ def roidb_for_training(
         gt=True, proposal_file=proposal_file, crowd_filter_thresh=crowd_filter_thresh
     )
     if use_flipped:
-        roidb = extend_with_flipped_entries(roidb)
-    roidb = filter_for_training(roidb, fg_thresh, bg_thresh_hi, bg_thresh_lo)
+        roidb = extend_with_flipped_entries(roidb, ds.keypoint_flip_perm)
+    roidb = filter_for_training(roidb, fg_thresh, bg_thresh_hi, bg_thresh_lo,
+                                require_keypoints=require_keypoints)
     add_bbox_regression_targets(roidb, bbox_thresh, bbox_reg_weights)
     return ds, roidb

@@ -3,14 +3,15 @@
 Port of ``detectorch_tpu/eval/engine.py`` (the reference's eval notebooks
 and ``json_dataset_evaluator.py:40-235``): run the model over a dataset,
 collect COCO results (bbox xywh with the +1 width convention, segm RLE
-strings) and score them with the numpy COCOeval (``eval/coco_eval``).
+strings, keypoints [x, y, 1] per keypoint) and score them with the numpy
+COCOeval (``eval/coco_eval``, OKS for keypoints).
 
   * ``InferenceEngine``: one image at a time; host-blob or
     device-preprocess input; multi-scale inference (``run_image_multiscale``).
   * ``BatchedInferenceEngine``: bucket-grouped batches, the tail batch
     padded by repeating its last sample; one packed (B, K, 8) detections
-    tensor and one mask tensor (bf16 unless ``mask_fetch_dtype`` says
-    float32) fetched per batch; masks pasted on the calling thread (a
+    tensor, one mask tensor (bf16 unless ``mask_fetch_dtype`` says
+    float32) and one fp32 keypoint tensor fetched per batch; masks pasted on the calling thread (a
     4-thread pool, as the JAX engine has, was twice as slow on the card's
     host).
   * ``evaluate_dataset``: the loop, with a prefetching loader and a 1-deep
@@ -47,7 +48,11 @@ from detectorch_tpu_torch.data.device_input import (
 from detectorch_tpu_torch.eval import mask_paste
 from detectorch_tpu_torch.eval import postprocess as pp
 from detectorch_tpu_torch.eval.coco_eval import COCOeval
-from detectorch_tpu_torch.models.detector import make_inference_fn, make_mask_fn
+from detectorch_tpu_torch.models.detector import (
+    make_inference_fn,
+    make_keypoint_fn,
+    make_mask_fn,
+)
 
 
 def detections_to_coco_bbox(det_boxes, det_scores, det_classes, image_id, contiguous_to_json):
@@ -65,6 +70,30 @@ def detections_to_coco_bbox(det_boxes, det_scores, det_classes, image_id, contig
     return out
 
 
+def detections_to_coco_keypoints(keypoints, det_scores, det_classes, image_id,
+                                 contiguous_to_json, confidence: str = "bbox"):
+    """(k, P, 4) decoded keypoints -> COCO keypoint results: [x, y, v=1] per
+    keypoint, scored by the detection ('bbox') or by the mean logit or
+    probability over the keypoints (reference
+    json_dataset_evaluator.py:371-417, whose rows are the (4, P)
+    transpose)."""
+    cols = {"bbox": None, "logit": 2, "prob": 3}
+    if confidence not in cols:
+        raise ValueError("keypoint_confidence must be 'bbox', 'logit', or 'prob'")
+    score_col = cols[confidence]
+    out = []
+    for kp, det_score, cls in zip(keypoints, det_scores, det_classes):
+        xyv = np.concatenate([kp[:, :2], np.ones((kp.shape[0], 1), kp.dtype)], axis=1)
+        score = float(det_score) if score_col is None else float(kp[:, score_col].mean())
+        out.append({
+            "image_id": int(image_id),
+            "category_id": int(contiguous_to_json[int(cls)]),
+            "keypoints": [float(v) for v in xyv.reshape(-1)],
+            "score": score,
+        })
+    return out
+
+
 class InferenceEngine:
     """Single-image inference. `params` are port-layout tensors
     (``checkpoint.convert``, ``checkpoint.caffe2_import``), moved to
@@ -72,8 +101,6 @@ class InferenceEngine:
 
     def __init__(self, cfg: ModelConfig, test_cfg: TestConfig, params: Dict,
                  device="cuda"):
-        if cfg.keypoint is not None:
-            raise NotImplementedError("keypoint inference is not ported yet")
         self.cfg = cfg
         self.test_cfg = test_cfg
         self.device = torch.device(device)
@@ -142,6 +169,15 @@ class InferenceEngine:
                                     else mfn)
         return self._compiled[ckey]
 
+    def _kp_fn(self, key):
+        """The keypoint-only program of the multi-scale path."""
+        ckey = ("kp", key)
+        if ckey not in self._compiled:
+            kfn = make_keypoint_fn(self.cfg)
+            self._compiled[ckey] = (self._wrap_raw(kfn, key) if self.test_cfg.device_preprocess
+                                    else kfn)
+        return self._compiled[ckey]
+
     # -- host side -------------------------------------------------------------
 
     def preprocess(self, im_rgb: np.ndarray, proposals: Optional[np.ndarray] = None,
@@ -190,10 +226,11 @@ class InferenceEngine:
         collect the host-side result."""
         if self._needs_exact_check() and not bool(out.all_exact[0]):
             out = self._run(self._exact_fn(self.sample_key(args)), args)
-        return self._collect_dets(out.detections, out.masks, oh, ow)
+        return self._collect_dets(out.detections, out.masks, oh, ow, out.keypoints)
 
     def run_image(self, im_rgb: np.ndarray, proposals: Optional[np.ndarray] = None):
-        """One image -> host dict of its final detections (and mask RLEs)."""
+        """One image -> host dict of its final detections (and mask RLEs,
+        keypoints)."""
         args, oh, ow = self.preprocess(im_rgb, proposals)
         return self.finalize(self.submit(args), args, oh, ow)
 
@@ -227,9 +264,9 @@ class InferenceEngine:
         """Multi-scale (test-time pyramid) inference with Detectron's
         TEST.BBOX_AUG union semantics, as the JAX engine runs it: the full
         program at each target size, the union of all scales' pre-NMS
-        candidates merged once (``_merge_fn``), then the mask branch once on
-        the merged boxes at target_sizes[0]. With one size it reduces to
-        run_image."""
+        candidates merged once (``_merge_fn``), then the mask and keypoint
+        branches once on the merged boxes at target_sizes[0]. With one size
+        it reduces to run_image."""
         if len(target_sizes) < 1:
             raise ValueError("need at least one target size")
         per_scale = []
@@ -243,32 +280,39 @@ class InferenceEngine:
             [o.rois for o, _ in per_scale], [o.roi_valid for o, _ in per_scale],
             torch.tensor([self._scale_of(a) for _, a in per_scale], **f32),
             torch.tensor([oh], **f32), torch.tensor([ow], **f32))
-        masks = None
+        masks = keypoints = None
+        args0 = per_scale[0][1]
+        base = args0[:3] if self.test_cfg.device_preprocess else args0[:4]
+        key0 = self.sample_key(args0)
         if self.cfg.use_mask:
-            args0 = per_scale[0][1]
-            base = args0[:3] if self.test_cfg.device_preprocess else args0[:4]
-            masks = self._mask_fn(self.sample_key(args0))(
-                self.params, *self._upload([base]), dets.boxes, dets.classes)
-        return self._collect_dets(dets, masks, oh, ow)
+            masks = self._mask_fn(key0)(self.params, *self._upload([base]), dets.boxes,
+                                        dets.classes)
+        if self.cfg.keypoint is not None:
+            keypoints = self._kp_fn(key0)(self.params, *self._upload([base]), dets.boxes)
+        return self._collect_dets(dets, masks, oh, ow, keypoints)
 
-    def _collect_dets(self, dets, masks, oh, ow):
-        """Batch-of-1 detections (and masks) -> host dict of valid rows."""
+    def _collect_dets(self, dets, masks, oh, ow, keypoints=None):
+        """Batch-of-1 detections (and masks, keypoints) -> host dict of valid
+        rows."""
         valid = dets.valid[0].cpu().numpy()
 
         def host(t):
-            return t[0].float().cpu().numpy()[valid]
+            return None if t is None else t[0].float().cpu().numpy()[valid]
 
         return self._result(host(dets.boxes), host(dets.scores),
-                            dets.classes[0].cpu().numpy()[valid],
-                            None if masks is None else host(masks), oh, ow)
+                            dets.classes[0].cpu().numpy()[valid], host(masks), oh, ow,
+                            host(keypoints))
 
-    def _result(self, boxes, scores, classes, masks, oh, ow):
+    def _result(self, boxes, scores, classes, masks, oh, ow, keypoints=None):
         """One image's valid detections as host arrays -> its result dict,
-        with the masks pasted and RLE-encoded when given."""
+        with the masks pasted and RLE-encoded, and the keypoints, when
+        given."""
         result = {"boxes": boxes, "scores": scores, "classes": classes}
         if masks is not None:
             result["rles"] = mask_paste.segm_results(masks, boxes, int(oh), int(ow),
                                                      self.cfg.mask.resolution)
+        if keypoints is not None:
+            result["keypoints"] = keypoints
         return result
 
 
@@ -314,7 +358,9 @@ class BatchedInferenceEngine:
                     # probabilities in [0, 1]: bf16 halves the largest
                     # device-to-host copy; it rounds before the 0.5 threshold
                     masks = masks.to(torch.bfloat16)
-                return pk, masks
+                # keypoints stay fp32: (B, K, P, 4) is ~30 KB an image, and
+                # bf16 would round x and y by whole pixels
+                return pk, masks, out.keypoints
 
             self._compiled[key] = packed
         return self._compiled[key]
@@ -335,13 +381,15 @@ class BatchedInferenceEngine:
         return self._fn(key)(self.params, *batch)
 
     def finalize_batch(self, out, samples):
-        """Fetch one batch's packed detections and masks (two device-to-host
-        copies), rerun any image whose NMS prefilter overflowed, and collect
-        the host results (mask paste + RLE, in this thread)."""
+        """Fetch one batch's packed detections, masks and keypoints (one
+        device-to-host copy each), rerun any image whose NMS prefilter
+        overflowed, and collect the host results (mask paste + RLE, in this
+        thread)."""
         n = len(samples)
-        pk_dev, masks_dev = out
+        pk_dev, masks_dev, kps_dev = out
         pk = pk_dev.cpu().numpy()
         masks = masks_dev.cpu().float().numpy() if masks_dev is not None else None
+        kps = kps_dev.cpu().numpy() if kps_dev is not None else None
         boxes = pk[..., :4]
         scores = pk[..., 4]
         classes = pk[..., 5].astype(np.int64)
@@ -354,13 +402,14 @@ class BatchedInferenceEngine:
             self.rerun_count += 1
             single = self._single
             out = single._run(single._exact_fn(single.sample_key(args)), args)
-            return single._collect_dets(out.detections, out.masks, oh, ow)
+            return single._collect_dets(out.detections, out.masks, oh, ow, out.keypoints)
 
         def collect(i):
             _, oh, ow = samples[i]
             ok = valid[i]
             return self._single._result(boxes[i][ok], scores[i][ok], classes[i][ok],
-                                        None if masks is None else masks[i][ok], oh, ow)
+                                        None if masks is None else masks[i][ok], oh, ow,
+                                        None if kps is None else kps[i][ok])
 
         reruns = {i: rerun_exact(i) for i in range(n) if not bool(exact[i])}
         collected = {i: collect(i) for i in range(n) if i not in reruns}
@@ -401,10 +450,12 @@ def evaluate_dataset(
     files and the evaluator pickles are saved (``eval.results_io``);
     `per_class_ap` prints the per-category AP table.
 
-    info holds the COCO results ('bbox', 'segm'), 'images_per_sec' (host
-    loading, device work, paste and RLE included) and 'phase_seconds', the
-    loop's time split into load (waiting on the loader), submit and
-    finalize."""
+    info holds the COCO results ('bbox', 'segm', 'keypoints'),
+    'keypoints_stats' (the 10 OKS stats of a keypoint preset, else None),
+    'images_per_sec' (host loading, device work, paste and RLE included) and
+    'phase_seconds', the loop's time split into load (waiting on the
+    loader), submit and finalize. Keypoint results are scored as
+    test_cfg.keypoint_confidence says."""
     if roidb is None:
         roidb = dataset.get_roidb(gt=False)
     if limit:
@@ -514,7 +565,7 @@ def evaluate_dataset(
             results_iter.append((pending[0], engine.finalize(*pending[1:])))
             phase_s["finalize"] += time.time() - ts
 
-    bbox_results, segm_results_all = [], []
+    bbox_results, segm_results_all, kps_results = [], [], []
     for i, (entry, res) in enumerate(results_iter):
         bbox_results.extend(detections_to_coco_bbox(
             res["boxes"], res["scores"], res["classes"], entry.image_id,
@@ -527,6 +578,10 @@ def evaluate_dataset(
                     "segmentation": rle,
                     "score": float(score),
                 })
+        if "keypoints" in res:
+            kps_results.extend(detections_to_coco_keypoints(
+                res["keypoints"], res["scores"], res["classes"], entry.image_id,
+                dataset.contiguous_to_json, confidence=test_cfg.keypoint_confidence))
         if verbose and (i + 1) % 100 == 0:
             rate = (i + 1) / (time.time() - t0)
             print(f"  {i+1}/{len(roidb)} ({rate:.2f} img/s)", flush=True)
@@ -557,8 +612,10 @@ def evaluate_dataset(
 
     bbox_stats = _eval(bbox_results, "bbox")
     segm_stats = _eval(segm_results_all, "segm") if cfg.use_mask else None
+    kps_stats = _eval(kps_results, "keypoints") if cfg.keypoint is not None else None
     return bbox_stats, segm_stats, {
         "bbox": bbox_results, "segm": segm_results_all,
+        "keypoints": kps_results, "keypoints_stats": kps_stats,
         "images_per_sec": len(roidb) / infer_seconds,
         "phase_seconds": phase_s,
     }

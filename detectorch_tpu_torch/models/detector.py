@@ -1,8 +1,8 @@
 """Detector assembly: images -> padded detections + masks, batched, eager.
 
 Port of ``detectorch_tpu/models/detector.py`` (``make_inference_fn`` with the
-RPN or with precomputed proposals, and ``make_mask_fn``), for the FPN and the
-C4 families, with the batch written out where the JAX package vmaps a
+RPN or with precomputed proposals, ``make_mask_fn`` and ``make_keypoint_fn``),
+for the FPN and the C4 families, with the batch written out where the JAX package vmaps a
 per-image program (``parallel/mesh.make_batched_inference_fn``).
 Every stage keeps the JAX package's fixed shapes — padded proposal, roi and
 detection slots with validity masks — and computes on padded and invalid
@@ -12,7 +12,10 @@ FPN: ResNet -> FPN neck -> shared RPN head on P2..P6 -> per-level NMS and
 collect -> RoIAlign 7x7 over the pyramid -> fc6/fc7; mask head '1up4convs'.
 C4: ResNet conv1..res4 -> RPN head on c4 (15 anchors) -> one NMS ->
 RoIAlign 14x14 at 1/16 with the adaptive grid -> res5 + mean; mask head
-'upshare' (res5 again, then conv5_mask). Both RoIAlign forms run the same
+'upshare' (res5 again, then conv5_mask). The keypoint branch (Keypoint
+R-CNN, and any preset given a keypoint config) runs RoIAlign 14x14 on the
+final detections, routed as the mask branch's, then the keypoint head and
+the heatmap decode (``ops.keypoints``). Every RoIAlign form runs the same
 CUDA kernel (``ops/cuda/roi_align_kernel``): the pyramid with one level per
 roi, C4 with its one level.
 
@@ -33,6 +36,7 @@ from detectorch_tpu_torch.models import fpn as fpn_mod
 from detectorch_tpu_torch.models import heads as heads_mod
 from detectorch_tpu_torch.models import resnet as resnet_mod
 from detectorch_tpu_torch.models import rpn as rpn_mod
+from detectorch_tpu_torch.ops import keypoints as kp_ops
 from detectorch_tpu_torch.ops.cuda.roi_align_kernel import (
     check_precision,
     roi_align_c4,
@@ -56,7 +60,7 @@ class ModelOutputs(NamedTuple):
     cls_scores: torch.Tensor           # (B, N, C)
     bbox_deltas: torch.Tensor          # (B, N, 4C)
     roi_align_exact: torch.Tensor      # (B,) bool, always True here
-    keypoints: Optional[torch.Tensor] = None
+    keypoints: Optional[torch.Tensor] = None  # (B, K, P, 4) [x, y, logit, prob] fp32
     all_exact: Optional[torch.Tensor] = None  # (B,) roi_align_exact & nms_exact
 
 
@@ -241,9 +245,25 @@ def mask_branch(params, cfg: ModelConfig, feats, det_boxes, det_classes, im_scal
     return torch.gather(probs, 3, cls)[..., 0].reshape(bsz, k, m, m)
 
 
+def keypoint_heatmaps(params, cfg: ModelConfig, feats, det_boxes, im_scale, roi_align=None):
+    """RoIAlign (cfg.keypoint.roi_size) on the detections (original-image
+    boxes (B, K, 4)) -> keypoint head: (B*K, S, S, P) fp32 heatmap logits."""
+    size = cfg.keypoint.roi_size
+    x = roi_features(cfg, feats, det_boxes * im_scale[:, None, None], size, roi_align)
+    x = x.reshape(-1, size, size, x.shape[-1]).to(compute_dtype(cfg))
+    return heads_mod.keypoint_head(params, x, cfg.keypoint.num_convs)
+
+
+def keypoint_branch(params, cfg: ModelConfig, feats, det_boxes, im_scale, roi_align=None):
+    """``keypoint_heatmaps`` decoded: (B, K, P, 4) fp32 [x, y, logit, prob]
+    in original-image coords."""
+    bsz, k = det_boxes.shape[:2]
+    heatmaps = keypoint_heatmaps(params, cfg, feats, det_boxes, im_scale, roi_align)
+    kps = kp_ops.heatmaps_to_keypoints(heatmaps, det_boxes.reshape(bsz * k, 4))
+    return kps.reshape(bsz, k, *kps.shape[1:])
+
+
 def _check_ported(cfg: ModelConfig):
-    if cfg.keypoint is not None:
-        raise NotImplementedError("the keypoint branch is not ported yet")
     if cfg.s2d_stem:
         raise NotImplementedError("the space-to-depth stem is a TPU-only layout")
     check_precision(cfg.roi_align_fwd_precision)
@@ -286,15 +306,17 @@ def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=None):
         cls_scores, bbox_deltas, dets = box_branch(
             params, cfg, test_cfg, feats, rois, roi_valid, im_scale, orig_h, orig_w,
             roi_align)
-        masks = None
+        masks = keypoints = None
         if cfg.use_mask:
             masks = mask_branch(params, cfg, feats, dets.boxes, dets.classes, im_scale,
                                 roi_align)
+        if cfg.keypoint is not None:
+            keypoints = keypoint_branch(params, cfg, feats, dets.boxes, im_scale, roi_align)
         exact = torch.ones(images.shape[0], dtype=torch.bool, device=images.device)
         return ModelOutputs(
             detections=dets, masks=masks, rois=rois, roi_valid=roi_valid,
             cls_scores=cls_scores, bbox_deltas=bbox_deltas, roi_align_exact=exact,
-            all_exact=exact & dets.nms_exact,
+            keypoints=keypoints, all_exact=exact & dets.nms_exact,
         )
 
     return forward
@@ -326,6 +348,29 @@ def make_mask_fn(cfg: ModelConfig, roi_align=None):
     return forward
 
 
+def make_keypoint_fn(cfg: ModelConfig):
+    """Keypoint-only program: final detection boxes -> decoded keypoints.
+
+    fn(params, images, im_scale, orig_h, orig_w, boxes) -> keypoints
+    (B, K, P, 4) fp32 [x, y, logit, prob], with boxes (B, K, 4) in
+    original-image coords; the role and argument layout of
+    ``make_mask_fn`` (the multi-scale path runs the keypoint branch once, on
+    the merged detections at the first scale). The JAX version also returns
+    a RoIAlign exactness flag, always True here.
+    """
+    _check_ported(cfg)
+    if cfg.keypoint is None:
+        raise ValueError("make_keypoint_fn needs a keypoint config")
+
+    @torch.inference_mode()
+    def forward(params, images, im_scale, orig_h, orig_w, boxes):
+        del orig_h, orig_w
+        feats = backbone_features(params, cfg, images)
+        return keypoint_branch(params, cfg, feats, boxes.float(), im_scale)
+
+    return forward
+
+
 def init_params(cfg: ModelConfig, seed: int = 0) -> Dict[str, np.ndarray]:
     """Random parameters, numpy, blob for blob equal to the JAX package's
     ``init_params`` (same names, HWIO conv weights, same values); turn them
@@ -347,5 +392,8 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Dict[str, np.ndarray]:
         p.update(heads_mod.init_mask_head_params(cfg.mask.head_type, cfg.num_classes,
                                                  seed=seed + 4))
     if cfg.keypoint is not None:
-        raise NotImplementedError("keypoint head params are not ported yet")
+        k = cfg.keypoint
+        p.update(heads_mod.init_keypoint_head_params(
+            k.num_keypoints, k.num_convs, k.conv_dim,
+            cfg.fpn.channels if cfg.use_fpn else 1024, seed=seed + 5))
     return p

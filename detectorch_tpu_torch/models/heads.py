@@ -1,9 +1,11 @@
-"""Box, classification and mask heads.
+"""Box, classification, mask and keypoint heads.
 
 Port of ``detectorch_tpu/models/heads.py``: the FPN box head (fc6/fc7) and
-'1up4convs' mask head, and the C4 heads on res5 (``res5_box_head`` and the
-'upshare' mask head). Blob names: fc6/fc7, cls_score, bbox_pred, res5_*,
-conv5_mask, mask_fcn_logits, _[mask]_fcn{1..4}.
+'1up4convs' mask head, the C4 heads on res5 (``res5_box_head`` and the
+'upshare' mask head), and the keypoint head (8 convs, the 4x4/2 deconv and
+the fixed bilinear 2x upsample). Blob names: fc6/fc7, cls_score, bbox_pred,
+res5_*, conv5_mask, mask_fcn_logits, _[mask]_fcn{1..4}, conv_fcn{1..8},
+kps_score_lowres.
 
 RoI features are NHWC (R, PH, PW, C) and fc6 flattens them in (H, W, C)
 order, as the JAX package does; the RoIAlign kernel writes exactly that
@@ -94,6 +96,41 @@ def mask_head(params, roi_feats, head_type: str, arch: str = "resnet50",
     return torch.sigmoid(logits) if output_prob else logits
 
 
+def deconv4x4s2(params, x, name: str):
+    """ConvTranspose2d(kernel 4, stride 2, padding 1) on NHWC x: an exact 2x
+    upsample. JAX convolves the 2x-dilated input, padded by 2, with the
+    flipped kernel — the same function. Weights (C_in, C_out, 4, 4),
+    ConvTranspose2d's own layout; the output in x's dtype."""
+    w = params[f"{name}_w"].to(x.dtype)
+    b = params[f"{name}_b"].to(x.dtype)
+    y = F.conv_transpose2d(to_nchw(x), w, stride=2, padding=1) + b[:, None, None]
+    return to_nhwc(y)
+
+
+def bilinear_upsample2x(x):
+    """Fixed bilinear 2x upsample of NHWC x: a depthwise transposed conv
+    k4/s2/p1 whose filter is outer((.25, .75, .75, .25)) (upstream
+    Detectron's BilinearInterpolation; symmetric, so flipping it changes
+    nothing). Not learned."""
+    c = x.shape[-1]
+    f = torch.tensor([0.25, 0.75, 0.75, 0.25], dtype=x.dtype, device=x.device)
+    w = torch.outer(f, f).expand(c, 1, 4, 4).contiguous()
+    return to_nhwc(F.conv_transpose2d(to_nchw(x), w, stride=2, padding=1, groups=c))
+
+
+def keypoint_head(params, roi_feats, num_convs: int = 8):
+    """Keypoint branch: roi_feats (N, 14, 14, C) NHWC -> (N, 56, 56, K) fp32
+    heatmap logits: num_convs x (3x3 conv + relu), the 4x4/2 deconv to K
+    channels at 28x28 (kps_score_lowres), then the bilinear 2x upsample in
+    fp32, as JAX casts before it."""
+    y = to_nchw(roi_feats.contiguous())
+    for i in range(1, num_convs + 1):
+        y = F.relu(conv(y, params[f"conv_fcn{i}_w"], pad=1)
+                   + params[f"conv_fcn{i}_b"].to(y.dtype)[:, None, None])
+    x = deconv4x4s2(params, to_nhwc(y), "kps_score_lowres")  # (N, 28, 28, K)
+    return bilinear_upsample2x(x.float())  # (N, 56, 56, K)
+
+
 # ---------------------------------------------------------------------------
 # Random init: numpy, blob for blob equal to detectorch_tpu.models.heads
 # ---------------------------------------------------------------------------
@@ -112,6 +149,28 @@ def init_box_head_params(box_head: str = "mlp", feat_ch: int = 1024,
     p["cls_score_b"] = np.zeros(num_classes, np.float32)
     p["bbox_pred_w"] = (rng.randn(4 * num_classes, feat_ch) * 0.001).astype(np.float32)
     p["bbox_pred_b"] = np.zeros(4 * num_classes, np.float32)
+    return p
+
+
+def init_keypoint_head_params(num_keypoints: int = 17, num_convs: int = 8,
+                              conv_dim: int = 512, in_ch: int = 256,
+                              seed: int = 6):
+    """He/MSRA init of the trunk convs (HWIO, as JAX's) and the deconv
+    (upstream Detectron's MSRAFill): a Gaussian(0.01) trunk would shrink the
+    logits to ~1e-4 after 8 layers, where the spatial softmax sits on its
+    uniform plateau and the loss cannot move."""
+    rng = np.random.RandomState(seed)
+    p = {}
+    c = in_ch
+    for i in range(1, num_convs + 1):
+        std = np.sqrt(2.0 / (3 * 3 * c))
+        p[f"conv_fcn{i}_w"] = (rng.randn(3, 3, c, conv_dim) * std).astype(np.float32)
+        p[f"conv_fcn{i}_b"] = np.zeros(conv_dim, np.float32)
+        c = conv_dim
+    # stride-2 4x4 deconv: each output pixel sums 2x2 taps over conv_dim channels
+    std = np.sqrt(2.0 / (4 * conv_dim))
+    p["kps_score_lowres_w"] = (rng.randn(conv_dim, num_keypoints, 4, 4) * std).astype(np.float32)
+    p["kps_score_lowres_b"] = np.zeros(num_keypoints, np.float32)
     return p
 
 

@@ -1,7 +1,8 @@
-"""COCO evaluation of the R-50-FPN and R-50-C4 families, in PyTorch.
+"""COCO evaluation of the R-50-FPN and R-50-C4 families and Keypoint R-CNN,
+in PyTorch.
 
 Port of ``tools/eval_coco.py``: runs a preset over a COCO dataset and
-prints throughput and box (and mask) AP, through
+prints throughput and box (and mask, or keypoint) AP, through
 ``eval.engine.evaluate_dataset``.
 
   python -m detectorch_tpu_torch.tools.eval_coco --preset e2e_mask_rcnn_R-50-FPN_2x \\
@@ -10,8 +11,10 @@ prints throughput and box (and mask) AP, through
 
 Weights come from a Detectron ``.pkl`` (--weights) or from a ``ckpt-<step>``
 of the port's trainer (--ckpt: a checkpoint, or a run directory whose latest
-checkpoint is read); BN is folded into the convs either way. The FPN and C4
-presets run (Fast, Faster and Mask R-CNN); keypoint presets are refused.
+checkpoint is read); BN is folded into the convs either way. Every preset
+runs: Fast, Faster and Mask R-CNN (FPN and C4) and Keypoint R-CNN
+(``e2e_keypoint_rcnn_R-50-FPN_1x``, scored by OKS on a person-keypoints
+annotation file).
 """
 
 from __future__ import annotations
@@ -98,9 +101,12 @@ def main(argv=None):
         print(f"box AP: {bbox_stats[0] * 100:.1f}")
     if segm_stats is not None:
         print(f"mask AP: {segm_stats[0] * 100:.1f}")
+    if info["keypoints_stats"] is not None:
+        print(f"keypoint AP: {info['keypoints_stats'][0] * 100:.1f}")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"bbox": info["bbox"], "segm": info["segm"]}, f)
+            json.dump({"bbox": info["bbox"], "segm": info["segm"],
+                       "keypoints": info["keypoints"]}, f)
         print(f"wrote {args.out}")
 
 

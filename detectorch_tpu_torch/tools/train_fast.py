@@ -1,17 +1,22 @@
-"""Fast, Faster and Mask R-CNN training, R-50-FPN and R-50-C4, in PyTorch.
+"""Fast, Faster, Mask and Keypoint R-CNN training, R-50-FPN and R-50-C4, in
+PyTorch.
 
 Port of ``tools/train_fast.py``: ``--fpn`` trains the FPN presets, without it
 the C4 ones (``fast_rcnn_R-50-C4_2x``, ``e2e_faster_rcnn_R-50-C4_2x``,
-``e2e_mask_rcnn_R-50-C4_2x``), as the JAX tool picks them. The Detectron 2x schedule
+``e2e_mask_rcnn_R-50-C4_2x``), and ``--keypoints`` trains
+``e2e_keypoint_rcnn_R-50-FPN_1x`` (FPN implied) from a person-keypoints
+dataset, as the JAX tool picks them. The Detectron 2x schedule
 (SGD momentum 0.9, wd 1e-4, step-decay LR with linear warmup, grad clip
 35, conv1 + res2 frozen), with the same argument names and defaults for the
 options it keeps, ``ckpt-<step>`` checkpoints under --out and ``--resume``.
 
   * default: Fast R-CNN from precomputed proposals (``--masks``: Mask
-    R-CNN, whose rois may come from the gt boxes alone);
+    R-CNN, ``--keypoints``: Keypoint R-CNN, whose rois may come from the gt
+    boxes alone);
   * ``--e2e``: end-to-end training, RPN and heads jointly, with anchor
-    targets, roi sampling and (with ``--masks``) mask targets made inside
-    the step from the gt boxes (``train.e2e``); no proposal file;
+    targets, roi sampling and (with ``--masks``) mask targets or (with
+    ``--keypoints``) keypoint labels made inside the step from the gt boxes
+    and keypoints (``train.e2e``); no proposal file;
   * ``--device-preprocess``: the uint8 schema, raw pixels and resize tables
     uploaded and resized on the device (``data.device_input``);
   * ``--prefetch N``: batches built by one producer thread behind an N-deep
@@ -30,8 +35,8 @@ which use OpenCV (cv2).
 --base-cnn loads an ImageNet base CNN from a Detectron ``.pkl``
 (``checkpoint.caffe2_import.import_base_cnn``); the heads keep their random
 init. --roi-align takes JAX's names; the C4 presets take 'gather' (or
-'auto'), as JAX's do: its Pallas names are the FPN path. Not ported yet,
-and refused: --keypoints.
+'auto'), as JAX's do: its Pallas names are the FPN path. --masks and
+--keypoints together are refused, as JAX refuses them.
 """
 
 from __future__ import annotations
@@ -87,26 +92,29 @@ def parse_args(argv=None):
                    default="bf16", help="tier of 'pallas-mm'; only 'highest' is ported")
     p.add_argument("--roi-align-fwd-precision", choices=["exact", "bf16x3", "bf16"],
                    default="exact", help="only 'exact' is ported")
-    p.add_argument("--keypoints", action="store_true", help="not ported yet: refused")
+    p.add_argument("--keypoints", action="store_true",
+                   help="train the Keypoint R-CNN preset (box branch + keypoint head) from "
+                        "a person-keypoints dataset; --fpn is implied")
     p.add_argument("--masks", action="store_true",
                    help="train Mask R-CNN: box branch + mask head with "
                         "polys_to_mask_wrt_box targets")
     p.add_argument("--e2e", action="store_true",
                    help="end-to-end training: RPN and heads jointly, anchor targets, "
-                        "roi sampling and mask targets made inside the step from the gt "
-                        "boxes (no proposal file); composes with --masks")
+                        "roi sampling and mask targets or keypoint labels made inside the "
+                        "step from the gts (no proposal file); composes with --masks or "
+                        "--keypoints")
     p.add_argument("--device", default="cuda", help="torch device to train on")
     args = p.parse_args(argv)
-    if args.keypoints:
-        p.error("--keypoints is not ported to PyTorch yet")
+    if args.masks and args.keypoints:
+        p.error("--masks and --keypoints are mutually exclusive")
     if args.base_cnn and not os.path.isfile(args.base_cnn):
         p.error(f"--base-cnn {args.base_cnn}: no such file")
-    if not args.fpn and args.roi_align not in ("auto", "gather"):
+    if not (args.fpn or args.keypoints) and args.roi_align not in ("auto", "gather"):
         p.error(f"--roi-align {args.roi_align} is the FPN path: the C4 presets "
                 "(no --fpn) take 'gather'")
-    if not args.masks and not args.e2e and not args.proposals:
+    if not args.masks and not args.keypoints and not args.e2e and not args.proposals:
         # Fast R-CNN needs hard negatives from precomputed proposals
-        p.error("--proposals is required unless --masks or --e2e is given")
+        p.error("--proposals is required unless --masks, --keypoints or --e2e is given")
     return args
 
 
@@ -128,9 +136,12 @@ def main(argv=None):
     from detectorch_tpu_torch.utils.stats import TrainingStats
 
     device = torch.device(args.device)
-    family = "FPN" if args.fpn else "C4"
-    kind = "e2e_mask_rcnn" if args.masks else "e2e_faster_rcnn" if args.e2e else "fast_rcnn"
-    preset = f"{kind}_R-50-{family}_2x"
+    if args.keypoints:
+        preset = "e2e_keypoint_rcnn_R-50-FPN_1x"
+    else:
+        family = "FPN" if args.fpn else "C4"
+        kind = "e2e_mask_rcnn" if args.masks else "e2e_faster_rcnn" if args.e2e else "fast_rcnn"
+        preset = f"{kind}_R-50-{family}_2x"
     cfg = PRESETS[preset].replace(arch=args.arch,
                                   roi_align_fwd_precision=args.roi_align_fwd_precision)
     solver = SolverConfig(base_lr=args.base_lr, max_iter=args.max_iter,
@@ -148,12 +159,13 @@ def main(argv=None):
         from detectorch_tpu_torch.train.e2e import make_e2e_train_step
 
         init_state, make_step = make_e2e_train_step(cfg, solver, sampler_cfg, seed=args.seed,
-                                                    **kwargs)
+                                                    train_keypoints=args.keypoints, **kwargs)
     else:
         init_state, make_step = make_train_step(cfg, solver, **kwargs)
 
     print("loading roidb...", flush=True)
-    _, roidb = roidb_for_training(args.ann, args.imdir, args.proposals)
+    _, roidb = roidb_for_training(args.ann, args.imdir, args.proposals,
+                                  require_keypoints=args.keypoints)
     print(f"roidb: {len(roidb)} entries", flush=True)
 
     params = params_from_jax(init_params(cfg, seed=args.seed))
@@ -197,7 +209,8 @@ def main(argv=None):
             return put_batch(make_batch_np())
 
     stats = TrainingStats(args.max_iter, args.log_period)
-    loss_keys = ("loss", "loss_cls", "loss_bbox") + (("loss_mask",) if args.masks else ()) \
+    loss_keys = ("loss", "loss_cls", "loss_bbox") + (("loss_kps",) if args.keypoints else ()) \
+        + (("loss_mask",) if args.masks else ()) \
         + (("loss_rpn_cls", "loss_rpn_bbox") if args.e2e else ())
     for it in range(start_iter, args.max_iter):
         stats.iter_tic()
@@ -219,8 +232,9 @@ class BatchMaker:
     """Makes one numpy training batch per call, on any one thread: images
     drawn from the roidb with the trainer's RandomState, read, flipped,
     and resized on the host or packed for ``--device-preprocess``; then the
-    host-sampled rois (Fast / Mask R-CNN) or the padded gt boxes, classes
-    and mask rasters (``--e2e``; crowd gts dropped)."""
+    host-sampled rois with their mask targets or keypoint labels (Fast,
+    Mask, Keypoint R-CNN) or the padded gt boxes, classes, mask rasters and
+    keypoints (``--e2e``; crowd gts dropped)."""
 
     def __init__(self, args, cfg, sampler_cfg, test_cfg, roidb):
         from detectorch_tpu_torch.data.device_input import RAW_STRIDE
@@ -231,7 +245,7 @@ class BatchMaker:
         self.blob_hw = tuple(args.blob)
         self.batch_size = args.batch_size or 1
         # the sampler puts foreground rows first, so the first fg-capacity
-        # rows hold every possible mask-training roi
+        # rows hold every possible mask- or keypoint-training roi
         self.fg_rows = int(np.round(sampler_cfg.fg_fraction * sampler_cfg.rois_per_image))
         # one raw bucket: the largest original image, padded to RAW_STRIDE
         self.raw_hw = (max(-(-e.height // RAW_STRIDE) * RAW_STRIDE for e in roidb),
@@ -274,12 +288,17 @@ class BatchMaker:
             out.update(self._gts(e, scale))
             return out
         mask_res = self.cfg.mask.resolution if args.masks else 0
+        heatmap = self.cfg.keypoint.heatmap_size if self.cfg.keypoint else 56
         blobs = sample_rois(e, scale, self.rng, self.sampler_cfg, self.cfg.num_classes,
-                            compact_targets=args.device_preprocess, mask_resolution=mask_res)
+                            compact_targets=args.device_preprocess,
+                            keypoint_heatmap_size=heatmap, mask_resolution=mask_res)
         keys = ["rois", "labels", "valid"] + (
             ["bbox_targets_compact"] if args.device_preprocess
             else ["bbox_targets", "bbox_inside_weights", "bbox_outside_weights"])
         out.update({k: blobs[k] for k in keys})
+        if args.keypoints:
+            out["kp_labels"] = blobs["kp_labels"][: self.fg_rows]
+            out["kp_valid"] = blobs["kp_valid"][: self.fg_rows]
         if args.masks:
             out["mask_targets"] = blobs["mask_targets"][: self.fg_rows]
             out["mask_valid"] = blobs["mask_valid"][: self.fg_rows]
@@ -287,7 +306,8 @@ class BatchMaker:
 
     def _gts(self, e, scale):
         """Padded gts of one image; with --masks one raster per gt, wrt its
-        own box (the step crop-resizes it into each sampled roi's frame)."""
+        own box (the step crop-resizes it into each sampled roi's frame);
+        with --keypoints each gt's keypoints, x and y scaled as its box."""
         from detectorch_tpu_torch.train.e2e import GT_RASTER_RES
         from detectorch_tpu_torch.train.sampler import polys_to_mask_wrt_box
 
@@ -306,6 +326,14 @@ class BatchMaker:
                 if isinstance(segm, list) and segm:
                     out["gt_masks"][i] = polys_to_mask_wrt_box(segm, e.boxes[ind], GT_RASTER_RES)
                     out["gt_mask_valid"][i] = True
+        if self.args.keypoints:
+            p = (e.gt_keypoints.shape[1] if e.gt_keypoints is not None
+                 else self.cfg.keypoint.num_keypoints)
+            out["gt_keypoints"] = np.zeros((GT_PAD, p, 3), np.float32)
+            if e.gt_keypoints is not None and len(e.gt_keypoints):
+                kk = e.gt_keypoints[np.maximum(e.box_to_gt_ind_map[gi], 0)]
+                out["gt_keypoints"][: len(gi), :, :2] = kk[:, :, :2] * scale
+                out["gt_keypoints"][: len(gi), :, 2] = kk[:, :, 2]
         return out
 
 

@@ -1,9 +1,11 @@
-"""End-to-end Faster / Mask R-CNN training, FPN and C4: RPN and heads jointly.
+"""End-to-end Faster / Mask / Keypoint R-CNN training, FPN and C4: RPN and
+heads jointly.
 
 Port of ``detectorch_tpu/train/e2e.py`` (upstream Detectron e2e semantics:
 anchor targets of ``roi_data/rpn.py``, the RPN losses of ``rpn_heads.py``,
 roi sampling from the RPN's own proposals as in ``roi_data/fast_rcnn.py``,
-and mask targets crop-resized from per-gt rasters). The JAX package vmaps a
+mask targets crop-resized from per-gt rasters, and keypoint heatmap labels
+binned from each sampled roi's gt keypoints). The JAX package vmaps a
 single-image loss; here every function takes a leading batch axis and the
 step runs eagerly on the whole batch: one backbone call, one RPN head call
 per level (C4: one level with 15 anchors, its proposals without the FPN
@@ -23,8 +25,7 @@ slots.
 
 RoIAlign is differentiable through ``ops.roi_align_fused`` (the CUDA kernels
 on CUDA tensors). It is exact for every roi, so JAX's
-``frac_rois_overflowed`` metric has no counterpart. Not ported yet, and
-refused: the keypoint branch.
+``frac_rois_overflowed`` metric has no counterpart.
 """
 
 from __future__ import annotations
@@ -47,7 +48,6 @@ from detectorch_tpu_torch.models.detector import (
 from detectorch_tpu_torch.ops import boxes as box_ops
 from detectorch_tpu_torch.train import losses
 from detectorch_tpu_torch.train.train_step import (
-    _check_trainable,
     check_step_config,
     device_images,
     expand_bbox_targets_device,
@@ -250,6 +250,37 @@ def mask_targets_device(gt_rasters, gt_boxes, gt_inds, rois, resolution: int,
     return (vals >= thresh).float().reshape(shape + vals.shape[1:])
 
 
+def keypoint_labels_device(kps, rois, heatmap_size: int):
+    """Heatmap bin labels of rois sampled inside the step: the device twin
+    of ``train.sampler.keypoints_to_heatmap_labels`` (upstream Detectron's
+    keypoint_utils), in fp32 as JAX's is, where the host's is float64.
+
+    kps (..., R, P, 3) [x, y, v] gt keypoints of each roi's assigned gt, in
+    the rois' frame; rois (..., R, 4). Returns (labels (..., R, P) int32
+    flat y*S + x, valid (..., R, P) bool). Only a keypoint exactly on the
+    right/bottom roi edge clamps into the last bin; one strictly outside
+    the roi, or unlabelled (v == 0), is invalid. The scale is computed as
+    JAX computes it: the tensor S over the clamped extent (a Python number
+    over a tensor is a reciprocal multiply in torch, which puts a keypoint
+    on a bin edge one bin off), then (kp - offset) * scale, then floor."""
+    s = float(heatmap_size)
+    off_x, off_y = rois[..., 0:1], rois[..., 1:2]
+    ext_x = torch.clamp_min(rois[..., 2:3] - rois[..., 0:1], 1e-6)
+    ext_y = torch.clamp_min(rois[..., 3:4] - rois[..., 1:2], 1e-6)
+    scale_x = torch.full_like(ext_x, s) / ext_x
+    scale_y = torch.full_like(ext_y, s) / ext_y
+    x_edge = kps[..., 0] == rois[..., 2:3]
+    y_edge = kps[..., 1] == rois[..., 3:4]
+    x = torch.floor((kps[..., 0] - off_x) * scale_x)
+    y = torch.floor((kps[..., 1] - off_y) * scale_y)
+    last = torch.full((), s - 1.0, device=kps.device)
+    x = torch.where(x_edge, last, x)
+    y = torch.where(y_edge, last, y)
+    valid = (x >= 0) & (y >= 0) & (x < s) & (y < s) & (kps[..., 2] > 0)
+    labels = (y * s + x).to(torch.int32)
+    return torch.where(valid, labels, torch.zeros_like(labels)), valid
+
+
 def _image_seed(seed: int, step: int, image: int) -> int:
     return int(np.random.SeedSequence([seed, step, image]).generate_state(1, np.uint64)[0]
                >> np.uint64(1))
@@ -280,7 +311,8 @@ def e2e_losses(params, cfg: ModelConfig, sampler_cfg: SamplerConfig, images, gt_
                train_pre_nms: int = 12000, train_post_nms: int = 2000,
                extras: Optional[Dict] = None, roi_align=None,
                anchor_cache: Optional[dict] = None, stage: Optional[Callable] = None):
-    """Joint RPN + box (+ mask) loss of a batch; the backbone runs once.
+    """Joint RPN + box (+ mask or keypoint) loss of a batch; the backbone
+    runs once.
 
     images (B, H, W, 3) fp32 padded blobs; gt_boxes (B, G, 4) in input-image
     coords, gt_classes (B, G), gt_valid (B, G); info (B, 3) [resized_h,
@@ -290,15 +322,14 @@ def e2e_losses(params, cfg: ModelConfig, sampler_cfg: SamplerConfig, images, gt_
     no gradient. `roi_align` defaults to the differentiable kernels of
     ``ops.roi_align_fused`` (``train_step.roi_heads_loss``). extras with
     gt_masks (B, G, Mg, Mg) uint8 rasters and gt_mask_valid (B, G) turn on
-    the mask branch, over the first round(fg_fraction * R) sampled rows.
+    the mask branch, over the first round(fg_fraction * R) sampled rows;
+    with gt_keypoints (B, G, P, 3) input-scaled [x, y, v], on a preset with
+    a keypoint config, the keypoint branch over the same rows.
     stage(name), if given, is called after each stage (the chip smoke test
     synchronises there to time them).
 
     Returns (total (B,), metrics {name: (B,)} with JAX's keys, SampledRois)."""
-    _check_trainable(cfg)
     extras = extras or {}
-    if "gt_keypoints" in extras:
-        raise NotImplementedError("keypoint training is not ported yet")
     mark = stage or (lambda name: None)
     cache = {} if anchor_cache is None else anchor_cache
     im_h, im_w, im_scale = info[:, 0], info[:, 1], info[:, 2]
@@ -342,25 +373,32 @@ def e2e_losses(params, cfg: ModelConfig, sampler_cfg: SamplerConfig, images, gt_
 
     sampled = sample_rois_device(props.boxes, props.valid, gt_boxes, gt_classes, gt_valid,
                                  u["roi_fg"], u["roi_bg"], u["roi_order"], sampler_cfg)
-    mask_targets = mask_valid = None
+    fg_rows = int(round(sampler_cfg.fg_fraction * sampler_cfg.rois_per_image))
+    inds = sampled.gt_inds[:, :fg_rows]
+    fg_mask = (sampled.labels[:, :fg_rows] > 0) & sampled.valid[:, :fg_rows]
+    mask_targets = mask_valid = kp_labels = kp_valid = None
     if cfg.use_mask and "gt_masks" in extras:
-        fg_rows = int(round(sampler_cfg.fg_fraction * sampler_cfg.rois_per_image))
-        inds = sampled.gt_inds[:, :fg_rows]
         mask_targets = mask_targets_device(extras["gt_masks"], gt_boxes, inds,
                                            sampled.rois[:, :fg_rows], cfg.mask.resolution)
-        mask_valid = ((sampled.labels[:, :fg_rows] > 0) & sampled.valid[:, :fg_rows]
-                      & torch.gather(extras["gt_mask_valid"], 1, inds.long()))
+        mask_valid = fg_mask & torch.gather(extras["gt_mask_valid"], 1, inds.long())
+    if cfg.keypoint is not None and "gt_keypoints" in extras:
+        kp_labels, kp_valid = keypoint_labels_device(
+            _take(extras["gt_keypoints"], inds.long()), sampled.rois[:, :fg_rows],
+            cfg.keypoint.heatmap_size)
+        kp_valid = kp_valid & fg_mask[..., None]
     targets, inside = expand_bbox_targets_device(sampled.targets, cfg.num_classes)
-    mark("sampling + mask targets")
+    mark("sampling + mask targets" if kp_labels is None else "sampling + keypoint labels")
 
     _, metrics = roi_heads_loss(params, cfg, feats, sampled.rois, sampled.labels, targets,
                                 inside, (inside > 0).to(inside.dtype), sampled.valid,
-                                mask_targets, mask_valid, roi_align)
+                                mask_targets, mask_valid, roi_align, kp_labels, kp_valid)
+    # summed in JAX's order: box, RPN, mask, keypoints
     total = metrics["loss_cls"] + metrics["loss_bbox"] + loss_rpn_cls + loss_rpn_bbox
-    if "loss_mask" in metrics:
-        total = total + metrics["loss_mask"]
+    for k in ("loss_mask", "loss_kps"):
+        if k in metrics:
+            total = total + metrics[k]
     metrics.update(loss_rpn_cls=loss_rpn_cls, loss_rpn_bbox=loss_rpn_bbox)
-    mark("box + mask heads")
+    mark("box + mask heads" if kp_labels is None else "box + keypoint heads")
     return total, metrics, sampled
 
 
@@ -379,16 +417,17 @@ def make_e2e_train_step(cfg: ModelConfig, solver_cfg: SolverConfig = SolverConfi
     resized_w, im_scale]. device_input=True replaces image by the uint8
     schema raw (B, RH, RW, 3), tables (B, 4, L), meta (B, 7), resized on the
     device into the blob_hw bucket, and takes info from meta[:, 2:5].
-    train_mask adds gt_masks (B, G, Mg, Mg) uint8 and gt_mask_valid (B, G).
+    train_mask adds gt_masks (B, G, Mg, Mg) uint8 and gt_mask_valid (B, G);
+    train_keypoints (a preset with a keypoint config) adds gt_keypoints
+    (B, G, P, 3) input-scaled [x, y, v].
 
     uniforms(step, batch_size, n_anchors, n_cand, device) -> {key: (B, n)}
     supplies each step's uniforms; by default ``torch_uniforms(seed)``.
     roi_align_impl and bwd_precision take JAX's names
     (``ops.roi_align_fused.check_roi_align_impl``; the C4 presets take
-    'gather', as JAX's do). train_keypoints and the keypoint presets raise
-    NotImplementedError."""
-    if train_keypoints:
-        raise NotImplementedError("keypoint training is not ported yet")
+    'gather', as JAX's do)."""
+    if train_keypoints and cfg.keypoint is None:
+        raise ValueError("train_keypoints=True needs the keypoint preset")
     check_step_config(cfg, train_mask, roi_align_impl, bwd_precision)
     draw = uniforms or torch_uniforms(seed)
     anchor_cache: Dict = {}
@@ -401,6 +440,8 @@ def make_e2e_train_step(cfg: ModelConfig, solver_cfg: SolverConfig = SolverConfi
                 images, info = batch["image"], batch["info"]
             extras = ({"gt_masks": batch["gt_masks"], "gt_mask_valid": batch["gt_mask_valid"]}
                       if train_mask else {})
+            if train_keypoints:
+                extras["gt_keypoints"] = batch["gt_keypoints"]
             bsz, dev = images.shape[0], images.device
             total, metrics, _ = e2e_losses(
                 state.params, cfg, sampler_cfg, images, batch["gt_boxes"],

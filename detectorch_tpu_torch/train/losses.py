@@ -71,5 +71,15 @@ def mask_loss(mask_logits, mask_targets, labels, mask_valid):
 
 
 def keypoint_loss(kp_logits, kp_labels, kp_valid):
-    """The keypoint heatmap loss waits for the keypoint head's port."""
-    raise NotImplementedError("keypoint training is not ported yet")
+    """Per keypoint, the softmax cross-entropy over the S*S heatmap bins in
+    fp32, averaged over the valid (labelled, in-roi, fg) keypoints (upstream
+    Detectron's spatial softmax loss for Keypoint R-CNN).
+
+    kp_logits (..., R, S, S, P); kp_labels (..., R, P) flat bin y*S + x;
+    kp_valid (..., R, P) bool."""
+    s, p = kp_logits.shape[-2], kp_logits.shape[-1]
+    flat = kp_logits.movedim(-1, -3).reshape(*kp_logits.shape[:-3], p, s * s)
+    logp = torch.log_softmax(flat.float(), dim=-1)
+    nll = -torch.gather(logp, -1, kp_labels.long()[..., None])[..., 0]
+    w = kp_valid.float()
+    return (nll * w).sum(dim=(-2, -1)) / torch.clamp_min(w.sum(dim=(-2, -1)), 1.0)

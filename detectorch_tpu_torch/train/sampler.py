@@ -6,8 +6,8 @@ validity mask (the reference emits fewer rows when an image lacks rois; its
 loss divides by the actual count — we carry the mask into the loss instead).
 
 The port's own copy of ``detectorch_tpu/train/sampler.py``, held to it by
-tests/test_torch_host_copies.py, without the keypoint targets, which wait
-for the keypoint branch's port.
+tests/test_torch_host_copies.py: the same code, keypoint targets
+included, with the port's imports.
 """
 
 from __future__ import annotations
@@ -32,6 +32,42 @@ def expand_bbox_targets(compact: np.ndarray, num_classes: int = 81):
         targets[ind, s : s + 4] = compact[ind, 1:]
         inside[ind, s : s + 4] = 1.0
     return targets, inside
+
+
+def keypoints_to_heatmap_labels(kps: np.ndarray, rois: np.ndarray,
+                                heatmap_size: int = 56):
+    """Discretise gt keypoints into per-roi heatmap bin labels (upstream
+    Detectron keypoint_utils.keypoints_to_heatmap_labels; the reference
+    repo carries no keypoint training code).
+
+    kps (R, P, 3) [x, y, v] gt keypoints of each roi's assigned gt box;
+    rois (R, 4) xyxy in the SAME coordinate frame (scale cancels in the
+    roi-relative mapping). Returns (labels (R, P) int32 flat bin index
+    y*S + x, valid (R, P) bool): floor of the roi-relative position scaled
+    to S bins; ONLY a keypoint exactly on the right/bottom roi edge is
+    clamped into the last bin (upstream's x_boundary_inds) — anything
+    strictly outside the roi is invalid, as is any unlabeled (v == 0)
+    keypoint."""
+    rois = np.asarray(rois, np.float64)
+    kps = np.asarray(kps, np.float64)
+    offset_x = rois[:, 0:1]
+    offset_y = rois[:, 1:2]
+    scale_x = heatmap_size / np.maximum(rois[:, 2:3] - rois[:, 0:1], 1e-6)
+    scale_y = heatmap_size / np.maximum(rois[:, 3:4] - rois[:, 1:2], 1e-6)
+    # exact-edge coordinates, detected BEFORE binning (upstream clamps only
+    # kp == roi edge into the last bin; a coordinate merely landing in the
+    # would-be bin S stays out-of-roi and invalid)
+    x_edge = kps[:, :, 0] == rois[:, 2:3]
+    y_edge = kps[:, :, 1] == rois[:, 3:4]
+    x = np.floor((kps[:, :, 0] - offset_x) * scale_x)
+    y = np.floor((kps[:, :, 1] - offset_y) * scale_y)
+    x = np.where(x_edge, heatmap_size - 1, x)
+    y = np.where(y_edge, heatmap_size - 1, y)
+    valid_loc = (x >= 0) & (y >= 0) & (x < heatmap_size) & (y < heatmap_size)
+    valid = valid_loc & (kps[:, :, 2] > 0)
+    labels = (y * heatmap_size + x).astype(np.int32)
+    labels[~valid] = 0
+    return labels, valid
 
 
 def polys_to_mask_wrt_box(polys, box, resolution: int) -> np.ndarray:
@@ -60,12 +96,15 @@ def sample_rois(
     cfg: SamplerConfig = SamplerConfig(),
     num_classes: int = 81,
     compact_targets: bool = False,
+    keypoint_heatmap_size: int = 56,
     mask_resolution: int = 0,
 ) -> Dict[str, np.ndarray]:
     """One image -> fixed-shape training blobs.
 
     Returns rois (R,4 scaled), labels (R,), bbox_targets (R,4K),
-    bbox_inside_weights, bbox_outside_weights, valid (R,).
+    bbox_inside_weights, bbox_outside_weights, valid (R,). When the entry
+    carries gt_keypoints, adds kp_labels (R,P) int32 heatmap bin indices +
+    kp_valid (R,P) bool (fg rows only; see keypoints_to_heatmap_labels).
 
     compact_targets=True skips the host-side 4K expansion and returns
     bbox_targets_compact (R,5) [cls,tx,ty,tw,th] instead — the jitted step
@@ -132,6 +171,20 @@ def sample_rois(
                     segm, entry.boxes[ind], m
                 )
                 out["mask_valid"][i] = True
+    if entry.gt_keypoints is not None:
+        p = entry.gt_keypoints.shape[1]
+        out["kp_labels"] = np.zeros((r, p), np.int32)
+        out["kp_valid"] = np.zeros((r, p), bool)
+        if fg_count and len(entry.gt_keypoints):
+            fg_keep = keep[:fg_count]
+            gt_kp = entry.gt_keypoints[
+                np.maximum(entry.box_to_gt_ind_map[fg_keep], 0)
+            ]
+            kl, kv = keypoints_to_heatmap_labels(
+                gt_kp, entry.boxes[fg_keep], keypoint_heatmap_size
+            )
+            out["kp_labels"][:fg_count] = kl
+            out["kp_valid"][:fg_count] = kv
     if compact_targets:
         out["bbox_targets_compact"] = np.zeros((r, 5), np.float32)
         out["bbox_targets_compact"][:n] = compact

@@ -12,11 +12,12 @@ RoIAlign is differentiable through ``ops.roi_align_fused``: the forward and
 backward CUDA kernels on CUDA tensors, the plain versions on CPU tensors;
 ``roi_align_fused`` over the FPN pyramid, ``roi_align_c4_fused`` over the C4
 map, whose box and mask heads are res5 (``models.detector.box_head``,
-``heads.mask_head('upshare')``). It is exact for every roi, so JAX's
+``heads.mask_head('upshare')``). The keypoint branch (a preset with a
+keypoint config, FPN or C4) runs over the first Rk rows through the same
+differentiable RoIAlign, where JAX's host-sampled step calls its gather
+form: the same function. RoIAlign is exact for every roi, so JAX's
 ``frac_rois_overflowed`` metric (the share of rois that overflow the TPU
-kernel's slab) has no counterpart here.
-
-Not ported yet, and refused: keypoint training. End-to-end training
+kernel's slab) has no counterpart here. End-to-end training
 (``train/e2e.py``) builds on ``roi_heads_loss``.
 """
 
@@ -71,36 +72,37 @@ def load_state_dict(state: TrainState, saved: Dict) -> TrainState:
 
 def box_branch_loss(params, cfg: ModelConfig, images, rois, labels, bbox_targets,
                     bbox_inside_weights, bbox_outside_weights, valid,
-                    mask_targets=None, mask_valid=None, roi_align=None):
+                    mask_targets=None, mask_valid=None, roi_align=None,
+                    kp_labels=None, kp_valid=None):
     """Per-image Fast R-CNN loss of a batch, plus the mask loss when
-    mask_targets/mask_valid are given (upstream Detectron mask training).
+    mask_targets/mask_valid are given (upstream Detectron mask training) and
+    the keypoint loss when cfg has a keypoint config and kp_labels/kp_valid
+    are given (Keypoint R-CNN training).
 
     images (B, H, W, 3) fp32; rois (B, R, 4) scaled xyxy; labels (B, R);
     bbox_targets and both weights (B, R, 4K); valid (B, R) bool;
     mask_targets (B, Rm, M, M) {0, 1} and mask_valid (B, Rm) over the first
-    Rm rois of each image (the sampler puts foreground rows first). Returns
-    (total (B,), metrics {name: (B,)}).
+    Rm rois of each image, kp_labels (B, Rk, P) heatmap bins y*S + x and
+    kp_valid (B, Rk, P) over the first Rk (the sampler puts foreground rows
+    first). Returns (total (B,), metrics {name: (B,)}).
     """
-    _check_trainable(cfg)
     feats = backbone_features(params, cfg, images)
     return roi_heads_loss(params, cfg, feats, rois, labels, bbox_targets,
                           bbox_inside_weights, bbox_outside_weights, valid,
-                          mask_targets, mask_valid, roi_align)
-
-
-def _check_trainable(cfg: ModelConfig):
-    if cfg.keypoint is not None:
-        raise NotImplementedError("keypoint training is not ported yet")
+                          mask_targets, mask_valid, roi_align, kp_labels, kp_valid)
 
 
 def roi_heads_loss(params, cfg: ModelConfig, feats, rois, labels, bbox_targets,
                    bbox_inside_weights, bbox_outside_weights, valid,
-                   mask_targets=None, mask_valid=None, roi_align=None):
+                   mask_targets=None, mask_valid=None, roi_align=None,
+                   kp_labels=None, kp_valid=None):
     """``box_branch_loss`` on backbone features already computed (the FPN
     pyramid or the C4 map): RoIAlign and the box head over every roi,
-    RoIAlign 14x14 and the mask head over the first Rm rois. One RoIAlign
-    launch per branch for the whole batch. `roi_align` defaults to
-    ``roi_align_fused`` (FPN) or ``roi_align_c4_fused`` (C4)."""
+    RoIAlign and the keypoint head over the first Rk rois, RoIAlign 14x14
+    and the mask head over the first Rm rois; the losses are summed in
+    JAX's order. One RoIAlign launch per branch for the whole batch.
+    `roi_align` defaults to ``roi_align_fused`` (FPN) or
+    ``roi_align_c4_fused`` (C4)."""
     dtype = compute_dtype(cfg)
     roi_align = roi_align or (roi_align_fused if cfg.use_fpn else roi_align_c4_fused)
     levels = _roi_levels(cfg, rois) if cfg.use_fpn else None
@@ -123,6 +125,18 @@ def roi_heads_loss(params, cfg: ModelConfig, feats, rois, labels, bbox_targets,
     acc = losses.accuracy(cls_logits, labels, valid)
     total = loss_cls + loss_bbox
     metrics = {"loss_cls": loss_cls, "loss_bbox": loss_bbox, "accuracy": acc}
+
+    if cfg.keypoint is not None and kp_labels is not None:
+        rk, size = kp_labels.shape[1], cfg.keypoint.roi_size
+        kp_feats = roi_features(cfg, feats, rois[:, :rk], size, roi_align,
+                                None if levels is None else levels[:, :rk])
+        heatmaps = heads_mod.keypoint_head(
+            params, kp_feats.reshape(bsz * rk, size, size, -1).to(dtype),
+            cfg.keypoint.num_convs)
+        loss_kps = losses.keypoint_loss(heatmaps.reshape(bsz, rk, *heatmaps.shape[1:]),
+                                        kp_labels, kp_valid)
+        total = total + loss_kps
+        metrics["loss_kps"] = loss_kps
 
     if cfg.use_mask and mask_targets is not None:
         rm = mask_targets.shape[1]
@@ -178,6 +192,8 @@ def make_train_step(cfg: ModelConfig, solver_cfg: SolverConfig = SolverConfig(),
     into the fixed blob_hw bucket (``device_images``), and
     bbox_targets_compact (B, R, 5) in place of the three (B, R, 4K)
     tensors, expanded on the device (``expand_bbox_targets_device``).
+    A preset with a keypoint config takes kp_labels (B, Rk, P) and
+    kp_valid (B, Rk, P) in either schema, as JAX's step does.
     metrics: batch means of the per-image losses and accuracy (0-d
     tensors, not synchronised), plus 'loss' and 'lr'.
 
@@ -190,6 +206,8 @@ def make_train_step(cfg: ModelConfig, solver_cfg: SolverConfig = SolverConfig(),
         def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
             extra = ({"mask_targets": batch["mask_targets"], "mask_valid": batch["mask_valid"]}
                      if train_mask else {})
+            if cfg.keypoint is not None:
+                extra.update(kp_labels=batch["kp_labels"], kp_valid=batch["kp_valid"])
             if device_input:
                 image = device_images(batch, blob_hw)
                 targets, inside = expand_bbox_targets_device(batch["bbox_targets_compact"],
@@ -211,7 +229,6 @@ def make_train_step(cfg: ModelConfig, solver_cfg: SolverConfig = SolverConfig(),
 def check_step_config(cfg: ModelConfig, train_mask: bool, roi_align_impl: str,
                       bwd_precision: str) -> None:
     """Refuse what the port's training steps do not run."""
-    _check_trainable(cfg)
     if cfg.s2d_stem:
         raise NotImplementedError("the space-to-depth stem is a TPU-only layout")
     if train_mask and not cfg.use_mask:

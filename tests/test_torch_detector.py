@@ -252,10 +252,34 @@ def test_fast_rcnn_fpn_matches_jax(rng):
 @pytest.mark.parametrize("preset", ["e2e_mask_rcnn_R-50-C4_2x", "fast_rcnn_R-50-C4_2x",
                                     "e2e_keypoint_rcnn_R-50-FPN_1x"])
 def test_unported_branches_raise(preset):
-    # the C4 presets run (tests/test_torch_c4_detector.py); a keypoint
-    # branch on them, as on FPN, is not ported yet
-    cfg = PRESETS[preset]
-    if cfg.keypoint is None:
-        cfg = cfg.replace(keypoint=PRESETS["e2e_keypoint_rcnn_R-50-FPN_1x"].keypoint)
-    with pytest.raises(NotImplementedError):
-        tdet.make_inference_fn(cfg, PTCFG)
+    """The keypoint branch, once refused, on each preset: make_keypoint_fn
+    against JAX's on the same boxes (the C4 presets given a keypoint
+    config, as JAX runs it; a small head, KeypointConfig(num_convs=2,
+    conv_dim=32)). Two 64x96 images (noise 4 for C4: the random C4 trunk's
+    magnitude, tests/test_torch_c4_detector.py), 6 boxes each of 16 to 60
+    px. fp32: logits within 1e-5 of their scale, x/y within 1e-4 px and
+    probabilities rtol 1e-4, a near-tied argmax aside (its logit still
+    agrees; tests/test_torch_kp_detector.py)."""
+    from tests.test_torch_kp_detector import compare_keypoints
+
+    cfg, pcfg = both_configs(lambda c: c.PRESETS[preset].replace(
+        compute_dtype="float32", use_pallas_roi_align=False,
+        keypoint=c.KeypointConfig(num_convs=2, conv_dim=32)))
+    rng = np.random.RandomState(7)
+    images = (rng.randn(2, 64, 96, 3) * (12 if cfg.use_fpn else 4)).astype(np.float32)
+    scale = np.array([1.2, 1.1], np.float32)
+    orig_h, orig_w = np.array([50.0, 55.0], np.float32), np.array([80.0, 85.0], np.float32)
+    xy = rng.uniform(0, 40, (2, 6, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(16, 60, (2, 6, 2))], -1).astype(np.float32)
+    jp = jdet.init_params(cfg, seed=123)
+    tp = params_from_jax(tdet.init_params(pcfg, seed=123))
+    got = tdet.make_keypoint_fn(pcfg)(tp, *map(_t, (images, scale, orig_h, orig_w, boxes)))
+    assert got.shape == (2, 6, 17, 4)
+    jkp = jax.jit(jdet.make_keypoint_fn(cfg))
+    tipped = 0
+    for b in range(2):
+        exp, exact = jkp(jp, images[b], jnp.float32(scale[b]), jnp.float32(orig_h[b]),
+                         jnp.float32(orig_w[b]), boxes[b])
+        assert bool(exact)
+        tipped += compare_keypoints(got[b].numpy(), np.asarray(exp), 1e-4, 1e-5, 1e-4)[0]
+    assert tipped <= 0.02 * 2 * 6 * 17

@@ -21,7 +21,7 @@ import torch
 
 from detectorch_tpu.eval import engine as jengine
 from detectorch_tpu_torch.checkpoint.convert import params_from_jax
-from detectorch_tpu_torch.config import PRESETS, RPNConfig
+from detectorch_tpu_torch.config import PRESETS, KeypointConfig, RPNConfig
 from detectorch_tpu_torch.data.coco import CocoDataset
 from detectorch_tpu_torch.data.transforms import load_image_rgb
 from detectorch_tpu_torch.eval import engine as E
@@ -194,8 +194,17 @@ def test_engines_reuse(tiny, faster_params):
     assert engines[("batched", 3)].batch_size == 3
     with pytest.raises(NotImplementedError):
         E.BatchedInferenceEngine(cfg, TCFG, faster_params, 2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        E.InferenceEngine(PRESETS["e2e_keypoint_rcnn_R-50-FPN_1x"], TCFG, {}, "cpu")
+    # the keypoint preset, once refused, runs in both engines (a small head:
+    # tests/test_torch_kp_engine.py holds them to JAX)
+    kcfg = PRESETS["e2e_keypoint_rcnn_R-50-FPN_1x"].replace(
+        compute_dtype="float32", rpn=RPN, keypoint=KeypointConfig(num_convs=2, conv_dim=32))
+    kparams = params_from_jax(init_params(kcfg, seed=0))
+    im = load_image_rgb(ds.get_roidb()[0].file_path)
+    res = E.InferenceEngine(kcfg, TCFG, kparams, "cpu").run_image(im)
+    assert res["keypoints"].shape == (len(res["boxes"]), 17, 4) and "rles" not in res
+    engine = E.BatchedInferenceEngine(kcfg, TCFG, kparams, 2, device="cpu")
+    (batched,) = engine.run_batch([engine.preprocess(im)])
+    np.testing.assert_allclose(batched["keypoints"], res["keypoints"], rtol=1e-4, atol=1e-3)
 
 
 def test_batched_mask_fetch_dtypes(tiny, mask_params):

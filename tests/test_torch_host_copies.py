@@ -313,3 +313,123 @@ def test_prefetch_loader_slow_first_item_does_not_deadlock(trial):
     thread.join(timeout=10)
     assert not thread.is_alive(), f"loader deadlocked after {len(got)} of 20 items"
     assert got == list(range(20))
+
+
+# --- the keypoint halves of data/coco and train/sampler, and data/synth ------
+
+
+@pytest.fixture(scope="module")
+def kp_synth(tmp_path_factory):
+    """A person-keypoints set (crowd persons without keypoints among them)."""
+    root = str(tmp_path_factory.mktemp("host_copies_kp"))
+    ann, imdir = build_synth_coco(root, n_images=6, height=96, width=128, seed=4,
+                                  with_keypoints=True, crowd_every=3)
+    return ann, imdir
+
+
+def test_keypoint_dataset_and_roidbs_match(kp_synth):
+    """The keypoint metadata, the flip permutation, gt keypoints (int32
+    truncation included) on gt and training roidbs, their flip, and the
+    keypoint filter; a keypoint roidb flipped without its permutation is
+    refused by both."""
+    ann, imdir = kp_synth
+    tds, jds = tcoco.CocoDataset(ann, imdir), jcoco.CocoDataset(ann, imdir)
+    for name in ("keypoints", "keypoint_flip_map", "num_keypoints"):
+        _assert_same(getattr(tds, name), getattr(jds, name), name)
+    _assert_same(tds.keypoint_flip_perm, jds.keypoint_flip_perm, "keypoint_flip_perm")
+    got, exp = tds.get_roidb(gt=True), jds.get_roidb(gt=True)
+    _assert_same(got, exp, "roidb")
+    assert all(e.gt_keypoints is not None and e.gt_keypoints.shape[1:] == (17, 3) for e in got)
+    for require in (False, True):
+        tr = tcoco.roidb_for_training(ann, imdir, None, require_keypoints=require)
+        jr = jcoco.roidb_for_training(ann, imdir, None, require_keypoints=require)
+        _assert_same(tr[1], jr[1], f"roidb_for_training require_keypoints={require}")
+    assert any(e.flipped for e in tr[1])
+    flipped = tcoco.flip_keypoints(got[0].gt_keypoints, tds.keypoint_flip_perm, got[0].width)
+    _assert_same(flipped, jcoco.flip_keypoints(exp[0].gt_keypoints, jds.keypoint_flip_perm,
+                                               exp[0].width), "flip_keypoints")
+    for mod, roidb in ((tcoco, got), (jcoco, exp)):
+        with pytest.raises(ValueError):
+            mod.extend_with_flipped_entries(roidb)
+    # the keypoint filter drops an entry without a labelled keypoint
+    bare = [dataclasses.replace(got[0], gt_keypoints=np.zeros_like(got[0].gt_keypoints))]
+    kept = tcoco.filter_for_training(bare + got[1:], require_keypoints=True)
+    assert got[0].image_id not in {e.image_id for e in kept}
+    assert got[0].image_id in {e.image_id for e in tcoco.filter_for_training(got)}
+    _assert_same(kept, jcoco.filter_for_training(
+        [dataclasses.replace(exp[0], gt_keypoints=np.zeros_like(exp[0].gt_keypoints))]
+        + exp[1:], require_keypoints=True), "filter")
+
+
+def test_keypoints_to_heatmap_labels_match(rng):
+    """Random keypoints and rois, keypoints on the bin edges and on the
+    right and bottom roi edges, outside, unlabelled: float64 on both
+    sides, equal bit for bit."""
+    r, p = 60, 17
+    x1, y1 = rng.uniform(0, 80, (2, r))
+    rois = np.stack([x1, y1, x1 + rng.uniform(0.5, 90, r), y1 + rng.uniform(0.5, 90, r)], 1)
+    k = rng.randint(-2, 59, (r, p))
+    kx = rois[:, :1] + k * (rois[:, 2:3] - rois[:, :1]) / 56
+    ky = rois[:, 1:2] + k[:, ::-1] * (rois[:, 3:4] - rois[:, 1:2]) / 56
+    kx[:, 0], ky[:, 1] = rois[:, 2], rois[:, 3]
+    kps = np.stack([kx, ky, rng.randint(0, 3, (r, p))], -1).astype(np.float32)
+    for size in (56, 14):
+        _assert_same(tsampler.keypoints_to_heatmap_labels(kps, rois, size),
+                     jsampler.keypoints_to_heatmap_labels(kps, rois, size), f"size {size}")
+
+
+def test_sample_rois_with_keypoints_matches(kp_synth):
+    """sample_rois on gt-only keypoint roidb entries: kp_labels and kp_valid
+    beside the rois, as the trainer's --keypoints draws them."""
+    ann, imdir = kp_synth
+    _, troidb = tcoco.roidb_for_training(ann, imdir, None, require_keypoints=True)
+    _, jroidb = jcoco.roidb_for_training(ann, imdir, None, require_keypoints=True)
+    tcfg, jcfg = tconfig.SamplerConfig(rois_per_image=16), jconfig.SamplerConfig(rois_per_image=16)
+    for te, je in zip(troidb, jroidb):
+        for size in (56, 28):
+            got = tsampler.sample_rois(te, 1.25, np.random.RandomState(5), tcfg, 2,
+                                       keypoint_heatmap_size=size)
+            exp = jsampler.sample_rois(je, 1.25, np.random.RandomState(5), jcfg, 2,
+                                       keypoint_heatmap_size=size)
+            _assert_same(got, exp, f"sample_rois {te.image_id} size {size}")
+            assert got["kp_labels"].shape == (16, 17) and got["kp_valid"][:4].any()
+
+
+@pytest.mark.parametrize("with_keypoints", [False, True], ids=["instances", "keypoints"])
+def test_synth_builder_matches(tmp_path, with_keypoints):
+    """data/synth: byte-identical annotations, images and proposal files
+    from the same arguments; the same class names."""
+    from detectorch_tpu.utils import dummy_datasets as jdummy
+    from detectorch_tpu_torch.data import synth as tsynth
+    from detectorch_tpu_torch.utils import dummy_datasets as tdummy
+
+    out = {}
+    for side, build, props in (("port", tsynth.build_synth_coco, tsynth.write_proposals_pkl),
+                               ("jax", build_synth_coco, write_proposals_pkl)):
+        root = str(tmp_path / side)
+        ann, imdir = build(root, n_images=3, height=64, width=80, seed=9,
+                           with_keypoints=with_keypoints)
+        assert build(root, n_images=3, height=64, width=80, seed=9,
+                     with_keypoints=with_keypoints) == (ann, imdir)  # reused
+        pkl = props(ann, os.path.join(root, "props.pkl"))
+        files = {os.path.relpath(os.path.join(d, f), root): open(os.path.join(d, f), "rb").read()
+                 for d, _, fs in os.walk(root) for f in fs}
+        out[side] = files
+        assert os.path.basename(pkl) in files
+    assert out["port"] == out["jax"] and len(out["port"]) == 3 + 3
+    _assert_same(tsynth.COCO_JSON_IDS, jsynth_ids())
+    _assert_same(tsynth.COCO_PERSON_KEYPOINTS, jsynth_keypoints())
+    _assert_same(tdummy.COCO_CLASSES, jdummy.COCO_CLASSES)
+    assert tdummy.get_coco_dataset().num_classes == jdummy.get_coco_dataset().num_classes == 81
+
+
+def jsynth_ids():
+    from detectorch_tpu.data import synth
+
+    return synth.COCO_JSON_IDS
+
+
+def jsynth_keypoints():
+    from detectorch_tpu.data import synth
+
+    return synth.COCO_PERSON_KEYPOINTS

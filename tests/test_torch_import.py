@@ -47,6 +47,8 @@ def test_port_imports_without_jax():
     assert "detectorch_tpu_torch.tools.eval_coco" in mods
     assert "detectorch_tpu_torch.train.e2e" in mods
     assert "detectorch_tpu_torch.tools.make_proposals" in mods
+    assert "detectorch_tpu_torch.ops.keypoints" in mods
+    assert "detectorch_tpu_torch.data.synth" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n" + LEAK_CHECK)
     proc = _python(["-c", code], cwd=REPO)
@@ -240,6 +242,67 @@ init_state, make_step = make_e2e_train_step(cfg, sampler_cfg=SamplerConfig(rois_
 state, opt = init_state(params)
 state, metrics = make_step(opt)(state, e2e)
 assert torch.isfinite(metrics["loss_rpn_cls"])
+""" + LEAK_CHECK
+    # the Tier-1 command's six workers share the cores: one torch thread
+    proc = _python(["-c", code, str(tmp_path)], cwd=REPO,
+                   env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_keypoint_paths_run_without_jax(tmp_path):
+    # Keypoint R-CNN tiny and on the CPU (a small head): a person-keypoints
+    # set made by the port's data/synth copy, inference and make_keypoint_fn,
+    # evaluate_dataset with its OKS stats, the host-sampled step with
+    # keypoint labels, and train_fast --keypoints --e2e for one iteration
+    code = """
+import dataclasses, os, sys
+import numpy as np
+import torch
+import detectorch_tpu_torch.config as config
+from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+from detectorch_tpu_torch.data.coco import CocoDataset
+from detectorch_tpu_torch.data.synth import build_synth_coco
+from detectorch_tpu_torch.eval.engine import evaluate_dataset
+from detectorch_tpu_torch.models.detector import init_params, make_inference_fn, make_keypoint_fn
+from detectorch_tpu_torch.tools import train_fast
+from detectorch_tpu_torch.train.train_step import make_train_step
+
+tmp = sys.argv[1]
+ann, imdir = build_synth_coco(os.path.join(tmp, "ds"), n_images=2, height=64, width=96, seed=2,
+                              with_keypoints=True)
+preset = "e2e_keypoint_rcnn_R-50-FPN_1x"
+cfg = config.PRESETS[preset].replace(rpn=config.RPNConfig(pre_nms_top_n=60, post_nms_top_n=8),
+                                     keypoint=config.KeypointConfig(num_convs=2, conv_dim=32))
+config.PRESETS[preset] = cfg
+cfg32 = cfg.replace(compute_dtype="float32")
+params = params_from_jax(init_params(cfg, seed=0))
+tcfg = config.TestConfig(target_size=64, max_size=96, detections_per_img=4, score_thresh=0.0,
+                         exact_blob_dims=True)
+images = torch.from_numpy(np.random.RandomState(0).randn(1, 64, 96, 3).astype(np.float32))
+meta = [torch.ones(1), torch.full((1,), 64.0), torch.full((1,), 96.0)]
+out = make_inference_fn(cfg32, tcfg)(params, images, *meta)
+assert out.keypoints.shape == (1, 12, 17, 4) and out.masks is None
+kps = make_keypoint_fn(cfg32)(params, images, *meta, out.detections.boxes)
+assert kps.shape == (1, 12, 17, 4)
+bbox, segm, info = evaluate_dataset(cfg32, tcfg.replace(device_preprocess=True), params,
+                                    CocoDataset(ann, imdir), verbose=False, batch_size=2,
+                                    device="cpu")
+assert segm is None and len(info["keypoints_stats"]) == 10 and info["keypoints"]
+r = 8
+batch = {"image": images, "rois": torch.tensor([[[4.0, 4.0, 40.0, 30.0]] * r]),
+         "labels": torch.tensor([[1] + [0] * (r - 1)]), "valid": torch.ones(1, r, dtype=bool),
+         "bbox_targets": torch.zeros(1, r, 8), "bbox_inside_weights": torch.zeros(1, r, 8),
+         "bbox_outside_weights": torch.zeros(1, r, 8),
+         "kp_labels": torch.randint(0, 3136, (1, 2, 17)), "kp_valid": torch.ones(1, 2, 17, dtype=bool)}
+init_state, make_step = make_train_step(cfg32)
+state, opt = init_state(params)
+state, metrics = make_step(opt)(state, batch)
+assert torch.isfinite(metrics["loss_kps"])
+train_fast.main(["--keypoints", "--e2e", "--ann", ann, "--imdir", imdir,
+                 "--out", os.path.join(tmp, "run"), "--max-iter", "1", "--target-size", "64",
+                 "--max-size", "96", "--blob", "64", "96", "--rois-per-image", "16",
+                 "--device", "cpu"])
+assert os.path.exists(os.path.join(tmp, "run", "ckpt-1"))
 """ + LEAK_CHECK
     # the Tier-1 command's six workers share the cores: one torch thread
     proc = _python(["-c", code, str(tmp_path)], cwd=REPO,

@@ -109,11 +109,11 @@ def _jax_trace(opt_state):
     return trace
 
 
-def _run_jax(cfg, params, batch, train_mask, steps):
+def _run_jax(cfg, params, batch, train_mask, steps, **kw):
     """Metrics of each step, JAX's gradient at step 1 and params after
-    `steps` steps (both in the port's layout)."""
+    `steps` steps (both in the port's layout); `kw` go to make_train_step."""
     init_state, make_step = jax_make_train_step(cfg, SOLVER, train_mask=train_mask,
-                                                roi_align_impl="pallas-slab")
+                                                roi_align_impl="pallas-slab", **kw)
     state, tx = init_state(params)
     step = jax.jit(make_step(tx))
     metrics, grads = [], None
@@ -145,9 +145,9 @@ def _port_grads(cfg, params, batch, train_mask):
         for k, v in state.params.items() if v.requires_grad}
 
 
-def _run_port(cfg, params, batch, train_mask, steps):
+def _run_port(cfg, params, batch, train_mask, steps, **kw):
     init_state, make_step = make_train_step(cfg, PSOLVER, train_mask=train_mask,
-                                            roi_align_impl="pallas-slab")
+                                            roi_align_impl="pallas-slab", **kw)
     state, opt = init_state(params_from_jax(params))
     step = make_step(opt)
     metrics = []
@@ -289,19 +289,30 @@ def test_batch_loss_is_the_mean_of_per_image_losses():
 
 
 @pytest.mark.parametrize("preset,kwargs,error", [
-    ("e2e_mask_rcnn_R-50-C4_2x", {}, NotImplementedError),
-    ("e2e_keypoint_rcnn_R-50-FPN_1x", {}, NotImplementedError),
+    # the ids keep the names these two cases had while the keypoint branch
+    # was refused; they now hold it to JAX
+    pytest.param("e2e_mask_rcnn_R-50-C4_2x", {}, None,
+                 id="e2e_mask_rcnn_R-50-C4_2x-kwargs0-NotImplementedError"),
+    pytest.param("e2e_keypoint_rcnn_R-50-FPN_1x", {"device_input": True}, None,
+                 id="e2e_keypoint_rcnn_R-50-FPN_1x-kwargs1-NotImplementedError"),
     (FAST, {"train_mask": True}, ValueError),
     (FAST, {"roi_align_impl": "pallas-mm"}, ValueError),
 ])
 def test_unported_training_raises(preset, kwargs, error):
-    # C4 trains (tests/test_torch_c4_train.py); a keypoint branch on it, as
-    # on FPN, is not ported yet
-    cfg = PRESETS[preset]
-    if not cfg.use_fpn:
-        cfg = cfg.replace(keypoint=PRESETS["e2e_keypoint_rcnn_R-50-FPN_1x"].keypoint)
-    with pytest.raises(error):
-        make_train_step(cfg, PSOLVER, **kwargs)
+    """What the host-sampled step refuses (a mask step on a preset without
+    masks, JAX's inexact matmul-gradient tier), and the keypoint branch,
+    once refused: on a C4 preset given a keypoint config, and on the
+    keypoint preset in the uint8 schema, against JAX
+    (tests/test_torch_kp_train.py says how)."""
+    from tests import test_torch_kp_train as kpt
+
+    if error is not None:
+        with pytest.raises(error):
+            make_train_step(PRESETS[preset], PSOLVER, **kwargs)
+    elif kwargs.get("device_input"):
+        kpt.uint8_step_matches_jax()
+    else:
+        kpt.c4_step_matches_jax(preset)
 
 
 @pytest.mark.parametrize("preset,kwargs", [
@@ -310,5 +321,13 @@ def test_unported_training_raises(preset, kwargs, error):
     ("e2e_keypoint_rcnn_R-50-FPN_1x", {"train_keypoints": True}),
 ], ids=["C4", "keypoint-preset", "train_keypoints"])
 def test_unported_e2e_training_raises(preset, kwargs):
-    with pytest.raises(NotImplementedError):
-        make_e2e_train_step(PRESETS[preset], PSOLVER, **kwargs)
+    """train_keypoints on a preset without a keypoint config is refused, as
+    JAX refuses it; the keypoint preset trains end to end without and with
+    its keypoint branch, against JAX (tests/test_torch_kp_train.py)."""
+    from tests import test_torch_kp_train as kpt
+
+    if PRESETS[preset].keypoint is None:
+        with pytest.raises(ValueError):
+            make_e2e_train_step(PRESETS[preset], PSOLVER, **kwargs)
+    else:
+        kpt.e2e_step_losses_match_jax(**kwargs)

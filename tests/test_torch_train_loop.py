@@ -78,8 +78,13 @@ def test_losses_match_jax(rng):
     t = (rng.rand(64) > 0.5).astype(np.float32)
     _close(losses.sigmoid_cross_entropy_with_logits(T(x), T(t)),
            jlosses.sigmoid_cross_entropy_with_logits(x, t))
-    with pytest.raises(NotImplementedError):
-        losses.keypoint_loss(None, None, None)
+    # the keypoint loss, once refused: per image, JAX's on the same arrays
+    kl = (rng.randn(b, 4, 8, 8, 17) * 2).astype(np.float32)
+    kb = rng.randint(0, 64, (b, 4, 17)).astype(np.int32)
+    kv = rng.rand(b, 4, 17) > 0.3
+    got_kp = losses.keypoint_loss(T(kl), T(kb), T(kv))
+    for i in range(b):
+        _close(got_kp[i], jlosses.keypoint_loss(kl[i], kb[i], kv[i]))
 
 
 def test_expand_bbox_targets_matches_jax(rng):

@@ -65,8 +65,12 @@ def _ellipse(box):
                      (y1 + y2) / 2 + (y2 - y1) / 2 * np.sin(ang)], 1).reshape(-1)
 
 
-def make_batch(seed, train_mask, device_input):
-    """Numpy batch of the case, in the host-blob or the uint8 schema."""
+def make_batch(seed, train_mask, device_input, keypoints=0):
+    """Numpy batch of the case, in the host-blob or the uint8 schema. With
+    `keypoints` > 0, each gt carries that many keypoints inside its box
+    (input-scaled, a fifth unlabelled) as gt_keypoints (B, G, keypoints, 3),
+    drawn after everything else so that the rest of the batch is that of
+    the seed without keypoints."""
     rng = np.random.RandomState(seed)
     batch = {"gt_boxes": np.zeros((B, G, 4), np.float32), "gt_classes": np.zeros((B, G), np.int32),
              "gt_valid": np.zeros((B, G), bool)}
@@ -104,6 +108,12 @@ def make_batch(seed, train_mask, device_input):
         # the host-blob schema: an image of noise over the whole padded blob
         batch["image"] = (rng.randn(B, H, W, 3) * 30).astype(np.float32)
         batch["info"] = np.asarray(info, np.float32)
+    if keypoints:
+        gb = batch["gt_boxes"]
+        kxy = gb[:, :, None, :2] + rng.uniform(0, 1, (B, G, keypoints, 2)) \
+            * (gb[:, :, None, 2:] - gb[:, :, None, :2])
+        vis = np.where(rng.rand(B, G, keypoints) < 0.2, 0.0, 2.0) * batch["gt_valid"][..., None]
+        batch["gt_keypoints"] = np.concatenate([kxy, vis[..., None]], -1).astype(np.float32)
     return batch
 
 
@@ -132,13 +142,14 @@ def jax_uniforms(seed=SEED):
     return draw
 
 
-def run_jax(cfg, params, batch, train_mask, device_input, steps, solver=SOLVER):
+def run_jax(cfg, params, batch, train_mask, device_input, steps, solver=SOLVER,
+            train_keypoints=False):
     """JAX's metrics per step, its step-0 gradient and its params after
     `steps` steps, both in the port's layout."""
     init_state, make_step = JE.make_e2e_train_step(
         cfg, solver, SAMPLER, seed=SEED, train_pre_nms=PRE, train_post_nms=POST,
-        train_mask=train_mask, device_input=device_input, blob_hw=(H, W),
-        roi_align_impl=roi_align_impl(cfg))
+        train_mask=train_mask, train_keypoints=train_keypoints, device_input=device_input,
+        blob_hw=(H, W), roi_align_impl=roi_align_impl(cfg))
     state, tx = init_state(params)
     step = jax.jit(make_step(tx))
     metrics, grads = [], None
@@ -200,7 +211,8 @@ def _info(batch):
     return batch["meta"][:, 2:5] if "meta" in batch else batch["info"]
 
 
-def port_losses(pcfg, params, batch, train_mask, device_input, roi_align=None):
+def port_losses(pcfg, params, batch, train_mask, device_input, roi_align=None,
+                train_keypoints=False):
     """The port's per-image losses, metrics, sample and step-0 gradient,
     through ``e2e_losses`` with JAX's step-0 uniforms. Also returns the
     images the step saw (after ``device_images`` in the uint8 schema)."""
@@ -211,6 +223,8 @@ def port_losses(pcfg, params, batch, train_mask, device_input, roi_align=None):
     images = device_images(tb, (H, W)) if device_input else tb["image"]
     extras = ({"gt_masks": tb["gt_masks"], "gt_mask_valid": tb["gt_mask_valid"]}
               if train_mask else {})
+    if train_keypoints:
+        extras["gt_keypoints"] = tb["gt_keypoints"]
     draw = jax_uniforms()
     kw = {} if roi_align is None else {"roi_align": roi_align}
     total, metrics, sampled = E.e2e_losses(
@@ -224,11 +238,12 @@ def port_losses(pcfg, params, batch, train_mask, device_input, roi_align=None):
     return total.detach(), metrics, sampled, grads, images.detach().numpy()
 
 
-def run_port(pcfg, params, batch, train_mask, device_input, steps, solver=PSOLVER):
+def run_port(pcfg, params, batch, train_mask, device_input, steps, solver=PSOLVER,
+             train_keypoints=False):
     init_state, make_step = E.make_e2e_train_step(
         pcfg, solver, PSAMPLER, seed=SEED, train_pre_nms=PRE, train_post_nms=POST,
-        train_mask=train_mask, device_input=device_input, blob_hw=(H, W),
-        roi_align_impl=roi_align_impl(pcfg), uniforms=jax_uniforms())
+        train_mask=train_mask, train_keypoints=train_keypoints, device_input=device_input,
+        blob_hw=(H, W), roi_align_impl=roi_align_impl(pcfg), uniforms=jax_uniforms())
     state, opt = init_state(params_from_jax(params))
     step = make_step(opt)
     metrics = []
