@@ -111,12 +111,36 @@ Phases — each passes or the script exits non-zero:
      the plain version (error, time, bound, share);
  20. the e2e keypoint step from uint8 input (RPN 12000 -> 2000, 512 rois,
      gt keypoints inside the gt boxes), as phase 10 with a keypoint stage;
- 21. one image of the keypoint training step in fp32, held as phase 8.
+ 21. one image of the keypoint training step in fp32, held as phase 8;
+ 22. the parallel paths from here on (``parallel/mesh``): phase 10's e2e
+     step through init_distributed_from_env and make_mesh on a one-rank
+     NCCL group (torchrun's environment, a file:// rendezvous): its metrics
+     over 4 steps equal the step's without a mesh (deterministic cuDNN, rtol
+     2e-4), its ms/step beside the no-mesh step's and phase 10's, and the
+     gradients' all-reduce alone, in one flat bucket and leaf by leaf;
+ 23. two ranks on the one card over gloo (NCCL refuses two ranks on one
+     device; ``parallel/launch.run_ranks``), fp32 with TF32 off, against
+     world 1 computed here first: the e2e step at global batch 8 (4 images
+     per rank): each rank's sampled rois, labels and gt indices equal world
+     1's for its rows, the global metrics within 2e-4, both kernels launched
+     on each rank; one step at global batch 2: the momentum equal to world
+     1's mean of the two images' gradients (one ReLU-flip channel per
+     leaf allowed, as phase 8);
+ 24. on the same ranks: batched inference at 832x1344 in fp32 over data 2
+     and over model 2 (fc6/fc7 split), 2 images, against the rank's rows
+     run with the whole params (``parallel.dryrun.compare_outputs``); then
+     evaluate_dataset on the mesh over phase 9's 36 images at global batch
+     8: img/s per rank in bf16 (two processes sharing one card: not a
+     scaling figure), and in fp32 the results equal world 1's;
+ 25. dryrun_multichip(2): data 1 x model 2 on the card, the e2e Mask R-CNN
+     step at JAX's reduced counts and sharded inference at 416x672 held to
+     one process.
 
 The line before the last is a JSON summary of the kernels (their times and
 bounds are those of the random bf16 7x7 call; "calls" lists every timed
 call, FPN, C4 and the keypoint calls; "launches" counts phase 10's three steps,
-"launches_by_path" each path's timed run), the line before it nvidia-smi's
+"launches_by_path" each path's timed run, per rank for phases 23-25), with
+phases 22-24's times under "parallel"; the line before it nvidia-smi's
 name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
@@ -1093,9 +1117,19 @@ def phase_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, rois_per_imag
                                     if v.grad is not None}
 
     k, kp, p = fused_variants(cfg)
-    loss_k, g_k = grads(k)
-    loss_kp, g_kp = grads(kp)
-    loss_p, g_p = grads(p)
+    # cuDNN's deterministic algorithms: the keypoint head's transposed convs
+    # run cuDNN's backward-data algorithms forward, some of which add with
+    # atomics, and the comparison below holds the three runs to one forward
+    # (on the card, one of three identical keypoint calls read 38.844124
+    # with the default algorithms, the others 38.844120)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_k, g_k = grads(k)
+        loss_kp, g_kp = grads(kp)
+        loss_p, g_p = grads(p)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     check(g_k.keys() == g_kp.keys() == g_p.keys(), "different leaves received gradients")
 
     rel_kp, _, cos_kp = compare_grads(g_k, g_kp)
@@ -1205,7 +1239,7 @@ def compare_results(a, b, tie=0.0):
 def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
                parity_images=PARITY_IMAGES, card="", tag="9 eval", weights=None, tie=0.0):
     """COCO evaluation through the port's entry points; returns the forward
-    kernel's launch count in the timed run."""
+    kernel's launch count in the timed run and its img/s."""
     import collections
     import functools
     import math
@@ -1304,7 +1338,7 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
             f"differences {diff}; max|d box| {max_box:.3g} (rtol 1e-4, atol 1e-3)"
             + (f"; {moved} pairs of scores within {tie:g} in the other order" if tie else ""))
         check(not any(diff.values()), f"batched and single-image results differ: {diff}")
-    return launches
+    return launches, info["images_per_sec"]
 
 
 def make_e2e_batch(rng, orig_sizes, blob_hw, target_size, max_size, gt_range, device,
@@ -1878,8 +1912,8 @@ def phase_c4(device, smi):
     # the res5 head of c4_weights scores every class near 1/81: scores of one
     # class tie within fp32 rounding, which batch and single engines order
     # either way
-    evals = phase_eval(device, cfg=cfg, card=smi, tag="14 c4 eval", weights=c4_weights(cfg),
-                       tie=1e-5)
+    evals, _ = phase_eval(device, cfg=cfg, card=smi, tag="14 c4 eval", weights=c4_weights(cfg),
+                          tie=1e-5)
     launches["c4_eval"] = {"roi_align_fwd": evals, "roi_align_bwd": 0}
     torch.cuda.empty_cache()
     launches["c4_training"], _ = phase_train(device, cfg=cfg, card=smi, tag="15 c4 train",
@@ -2230,6 +2264,501 @@ def phase_kp(device, smi):
     return {"launches": launches, "calls": calls}
 
 
+# ------------------------------------------------- parallel (phases 22-25)
+
+# world 2 against world 1: losses and metrics (JAX's sharded tests' rtol)
+PAR_LOSS_RTOL = 2e-4
+# the e2e phases' per-rank images of the global batch 8, and the batch of
+# the fp32 params check
+PAR_BATCH, PAR_PARAMS_BATCH = 8, 2
+PAR_INFER_IMAGES = 2
+
+
+def e2e_setup(device, dtype, sizes=E2E_SIZES, height=HEIGHT, width=WIDTH, target_size=800,
+              max_size=1333, rois_per_image=TRAIN_ROIS, gt_range=(3, 20)):
+    """Phase 10's e2e Mask R-CNN inputs: its config in `dtype`, solver and
+    sampler, and its uint8 batch (RandomState(10)) on `device`."""
+    import numpy as np
+
+    from detectorch_tpu_torch.config import PRESETS, SamplerConfig, SolverConfig
+
+    cfg = PRESETS[PRESET].replace(compute_dtype=dtype)
+    batch = make_e2e_batch(np.random.RandomState(10), sizes, (height, width), target_size,
+                           max_size, gt_range, device)
+    return (cfg, SolverConfig(base_lr=1e-4, warmup_iters=0),
+            SamplerConfig(rois_per_image=rois_per_image), batch)
+
+
+def e2e_step_of(cfg, solver, sampler, hw, counts, mesh=None):
+    """Phase 10's make_e2e_train_step (uint8 input, masks), on `mesh`."""
+    from detectorch_tpu_torch.train.e2e import make_e2e_train_step
+
+    return make_e2e_train_step(cfg, solver, sampler, seed=0, train_pre_nms=counts[0],
+                               train_post_nms=counts[1], train_mask=True, device_input=True,
+                               blob_hw=hw, roi_align_impl=roi_align_impl(cfg), mesh=mesh)
+
+
+def e2e_rows_sample(params, cfg, sampler, rows, first, total, hw, counts, mesh=None):
+    """The e2e losses of `rows` (images first.. of a global batch of
+    `total`, drawing their uniforms as the step does), without a gradient:
+    per-image metrics and the sampled rois, on the host."""
+    import torch
+
+    from detectorch_tpu_torch.train.e2e import e2e_losses, rank_uniforms
+    from detectorch_tpu_torch.train.train_step import device_images
+
+    draw = rank_uniforms(None, 0)
+    n, dev = rows["raw"].shape[0], rows["raw"].device
+    with torch.no_grad():
+        _, metrics, sampled = e2e_losses(
+            params, cfg, sampler, device_images(rows, hw), rows["gt_boxes"],
+            rows["gt_classes"], rows["gt_valid"], rows["meta"][:, 2:5],
+            lambda na, nc: draw(0, first, n, total, na, nc, dev), train_pre_nms=counts[0],
+            train_post_nms=counts[1], extras=e2e_extras(cfg, rows), mesh=mesh)
+    return ({k: v.float().cpu() for k, v in metrics.items()},
+            {k: getattr(sampled, k).cpu() for k in ("rois", "labels", "valid", "gt_inds")})
+
+
+def rows_of(batch, a, b):
+    return {k: v[a:b] for k, v in batch.items()}
+
+
+def momentum_by_name(state):
+    """The SGD momentum of each trainable leaf, on the host."""
+    names = [k for k, v in state.params.items() if v.requires_grad]
+    return {names[i]: s["momentum_buffer"].cpu()
+            for i, s in state.optimizer.state_dict()["state"].items()}
+
+
+def phase_world1(device, card="", e2e_ms=None, backend="nccl", steps=4, **setup):
+    """Phase 22: the e2e step through init_distributed_from_env and
+    make_mesh on a one-rank group (torchrun's environment, `backend`),
+    against the step without a mesh; the gradients' all-reduce alone, in
+    flat buckets and leaf by leaf. Returns the phase's numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
+    from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
+    from detectorch_tpu_torch.parallel import mesh as par
+
+    tag = "22 world 1"
+    counts = setup.pop("counts", (TRAIN_PRE, TRAIN_POST))
+    hw = (setup.get("height", HEIGHT), setup.get("width", WIDTH))
+    cfg, solver, sampler, batch = e2e_setup(device, "bfloat16", **setup)
+    host = params_from_jax(init_params(cfg, seed=0))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def run(mesh):
+        """`steps` steps on the one batch: metrics of each, ms of all but
+        the first, launches in those."""
+        init_state, make_step = e2e_step_of(cfg, solver, sampler, hw, counts, mesh)
+        state, opt = init_state(params_to_device(host, device))
+        step, metrics, times = make_step(opt), [], []
+        for i in range(steps):
+            if i == 1:
+                roi_align_fwd.launches = roi_align_bwd.launches = 0
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            sync()
+            times.append(time.perf_counter() - t0)
+        return {"metrics": metrics, "ms": sum(times[1:]) / (steps - 1) * 1e3,
+                "launches": (roi_align_fwd.launches, roi_align_bwd.launches), "state": state}
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": str(device.index or 0)}
+    saved_env = {k: os.environ.get(k) for k in env}
+    deterministic = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ.update(env)
+        try:
+            check(par.init_distributed_from_env(backend, "file://" + os.path.join(tmp, "rdzv")),
+                  "init_distributed_from_env did not join the one-rank group")
+            mesh = par.make_mesh(device=device)
+            check(mesh.shape == {"data": 1, "model": 1} and mesh.device_mesh is not None
+                  and dist.get_backend() == backend, f"mesh {mesh}, {dist.get_backend()}")
+            # equality: cuDNN's deterministic algorithms make a step
+            # reproducible, so the mesh's steps must give the plain steps'
+            # metrics; times: the default algorithms, as phase 10
+            torch.backends.cudnn.deterministic = True
+            same = {name: run(m) for name, m in (("plain", None), ("mesh", mesh))}
+            torch.backends.cudnn.deterministic = deterministic
+            timed = {name: run(m) for name, m in (("plain", None), ("mesh", mesh))}
+            worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                        for a, b in zip(same["mesh"]["metrics"], same["plain"]["metrics"])
+                        for k in b if k.startswith("loss"))
+            # the all-reduce alone, on gradients of the model's trainable leaves
+            params = timed["mesh"]["state"].params
+            trainable = [p for p in params.values() if p.requires_grad]
+            for p in trainable:
+                p.grad = torch.randn_like(p)
+            n_train = sum(p.numel() for p in trainable)
+            trainable_names = [k for k, p in params.items() if p.requires_grad]
+            n_all = sum(p.numel() for p in params.values())
+
+            def per_leaf():
+                for p in trainable:
+                    dist.all_reduce(p.grad)
+                    p.grad.div_(torch.ones((), device=p.device))
+
+            bucketed_ms = leaf_ms = 0.0  # a device time: none on the CPU
+            if device.type == "cuda":
+                bucketed_ms = cuda_time_ms(lambda: par.average_gradients(params, mesh), 10)
+                leaf_ms = cuda_time_ms(per_leaf, 10)
+            del params, trainable, same, timed["plain"]["state"], timed["mesh"]["state"]
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    plain, meshed = timed["plain"], timed["mesh"]
+    log(f"[{tag}] {cfg.name} bf16 batch {len(batch['raw'])} through init_distributed_from_env + "
+        f"make_mesh: {backend} group of 1, mesh {mesh.shape}; {n_all / 1e6:.2f}M parameters, "
+        f"{n_train / 1e6:.2f}M trainable ({n_train * 4 / 2 ** 20:.1f} MiB of fp32 gradients)")
+    log(f"[{tag}] metrics of {steps} steps, deterministic cuDNN, mesh vs no mesh: largest "
+        f"relative loss difference {worst:.3g} (rtol {PAR_LOSS_RTOL:g})")
+    log(f"[{tag}] {meshed['ms']:.1f} ms/step on the mesh, {plain['ms']:.1f} without (this run)"
+        + (f", phase 10 {e2e_ms:.1f}" if e2e_ms else "") + f" on {card or device}; gradient "
+        f"all-reduce: {bucketed_ms:.3f} ms bucketed, {leaf_ms:.3f} ms leaf by leaf "
+        f"({len(trainable_names)} trainable leaves); launches in {steps - 1} steps "
+        f"{meshed['launches']}")
+    check(worst <= PAR_LOSS_RTOL, f"mesh metrics differ from the plain step's by {worst:.3g}")
+    check(all(np.isfinite(v) for m in meshed["metrics"] for v in m.values()), "non-finite")
+    if device.type == "cuda":
+        check(meshed["launches"] == (2 * (steps - 1), 2 * (steps - 1)),
+              f"kernel launches {meshed['launches']} in {steps - 1} steps on the mesh")
+    return {"ms_per_step": meshed["ms"], "plain_ms_per_step": plain["ms"],
+            "allreduce_bucketed_ms": bucketed_ms, "allreduce_per_leaf_ms": leaf_ms,
+            "launches": {"roi_align_fwd": meshed["launches"][0],
+                         "roi_align_bwd": meshed["launches"][1]}}
+
+
+def parallel_references(device, ref_path, eval_root, setup, infer_hw, eval_images, eval_test):
+    """World 1 for phases 23-24, fp32 with TF32 off, saved to `ref_path`:
+    the e2e losses and sample of each rank's rows of the global batch 8
+    (run as that rank's batch: cuDNN picks its algorithms by the batch),
+    the momentum and params after one step at global batch 2 from the mean
+    of its images' gradients, taken one image at a time, and the eval
+    results of phase 9's images at batch 8."""
+    import numpy as np
+    import torch
+
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
+    from detectorch_tpu_torch.data.coco import CocoDataset
+    from detectorch_tpu_torch.eval.engine import evaluate_dataset
+    from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.train.e2e import e2e_losses, rank_uniforms
+    from detectorch_tpu_torch.train.solver import apply_update
+    from detectorch_tpu_torch.train.train_step import device_images, make_init_state
+
+    setup = dict(setup)
+    counts = setup.pop("counts", (TRAIN_PRE, TRAIN_POST))
+    hw = (setup.get("height", HEIGHT), setup.get("width", WIDTH))
+    torch.backends.cudnn.allow_tf32 = False  # as the ranks run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, solver, sampler, batch = e2e_setup(device, "float32", **setup)
+    params = params_to_device(params_from_jax(init_params(cfg, seed=0)), device)
+    state, opt = make_init_state(solver)(params)
+    total = len(batch["raw"])
+    half = total // 2
+    ref = {"blocks": [], "metrics": []}
+    for r in range(2):
+        metrics, sampled = e2e_rows_sample(state.params, cfg, sampler,
+                                           rows_of(batch, r * half, (r + 1) * half),
+                                           r * half, total, hw, counts)
+        ref["blocks"].append(sampled)
+        ref["metrics"].append(metrics)
+    ref["metrics"] = {k: float(torch.cat([m[k] for m in ref["metrics"]]).mean())
+                      for k in ref["metrics"][0]}
+    # one step at global batch 2 from the mean of the two images' gradients
+    draw = rank_uniforms(None, 0)
+    for i in range(PAR_PARAMS_BATCH):
+        rows = rows_of(batch, i, i + 1)
+        t, _, _ = e2e_losses(state.params, cfg, sampler, device_images(rows, hw),
+                             rows["gt_boxes"], rows["gt_classes"], rows["gt_valid"],
+                             rows["meta"][:, 2:5],
+                             lambda na, nc: draw(0, i, 1, PAR_PARAMS_BATCH, na, nc, device),
+                             train_pre_nms=counts[0], train_post_nms=counts[1],
+                             extras=e2e_extras(cfg, rows))
+        (t.mean() / PAR_PARAMS_BATCH).backward()
+    apply_update(opt, 0, solver)
+    ref["momentum"] = momentum_by_name(state)
+    ref["params"] = {k: v.detach().cpu() for k, v in state.params.items()}
+    del state, opt, params
+    # inference: the images, made on the card from a seed as the ranks make them
+    ref["infer"] = infer_inputs(device, infer_hw)
+    # eval: world 1 in fp32 at batch 8, masks biased away from the threshold
+    ann, pics = make_eval_set(eval_root, eval_images, np.random.RandomState(7))
+    ecfg, etcfg, eparams = eval32_config(cfg.replace(compute_dtype="float32"), eval_test)
+    _, _, info = evaluate_dataset(ecfg, etcfg, eparams, CocoDataset(ann, eval_root),
+                                  verbose=False, batch_size=PAR_BATCH, engines={},
+                                  load_image=lambda path: pics[os.path.basename(path)],
+                                  device=device)
+    ref["eval"] = {k: info[k] for k in ("bbox", "segm")}
+    torch.save(ref, ref_path)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def infer_inputs(device, hw):
+    """Phase 24's inference batch: PAR_INFER_IMAGES noise blobs from a
+    seeded generator, with their scale and original size."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(24)
+    images = torch.randn((PAR_INFER_IMAGES, *hw, 3), generator=gen, device=device) * 50.0
+    return [images.cpu()] + [torch.full((PAR_INFER_IMAGES,), v) for v in
+                             (1.0, hw[0] * 0.96, hw[1] * 0.99)]
+
+
+def eval_test_cfg(**overrides):
+    """Phase 9's TestConfig: score_thresh 0 (random weights score every
+    class near 1/81), on-device preprocessing."""
+    from detectorch_tpu_torch.config import TestConfig
+
+    return TestConfig(score_thresh=0.0, device_preprocess=True).replace(**overrides)
+
+
+def eval32_config(cfg, eval_test):
+    """Phase 9's fp32 parity setting: fp32 masks fetched, score_thresh 0,
+    on-device preprocessing, init_params(seed 0) with a +-3 mask bias."""
+    import numpy as np
+
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+    from detectorch_tpu_torch.models.detector import init_params
+
+    params = init_params(cfg, seed=0)
+    params["mask_fcn_logits_b"] = np.where(np.arange(cfg.num_classes) % 2, -3.0, 3.0
+                                           ).astype(np.float32)
+    return cfg, eval_test_cfg(mask_fetch_dtype="float32", **eval_test), params_from_jax(params)
+
+
+def parallel_rank(ref_path, eval_root, setup, infer_hw, eval_images, eval_test):
+    """Phases 23 and 24 on one of two ranks sharing a card over gloo (or on
+    the CPU): returns this rank's numbers; a failed check raises."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
+    from detectorch_tpu_torch.config import PRESETS, TestConfig
+    from detectorch_tpu_torch.data.coco import CocoDataset
+    from detectorch_tpu_torch.eval.engine import evaluate_dataset
+    from detectorch_tpu_torch.models.detector import init_params, make_inference_fn
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
+    from detectorch_tpu_torch.parallel import mesh as par
+    from detectorch_tpu_torch.parallel.dryrun import compare_outputs, to_host
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = par.default_device()
+    ref = torch.load(ref_path, map_location="cpu", weights_only=False)
+    mesh = par.make_mesh(device=device)
+    r, out = mesh.coords["data"], {"rank": mesh.rank, "device": str(device)}
+    setup = dict(setup)
+    counts = setup.pop("counts", (TRAIN_PRE, TRAIN_POST))
+    hw = (setup.get("height", HEIGHT), setup.get("width", WIDTH))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    # 23: the e2e step at global batch 8 (fp32): this rank's sample and the
+    # global metrics against world 1
+    cfg, solver, sampler, batch = e2e_setup(device, "float32", **setup)
+    host = params_from_jax(init_params(cfg, seed=0))
+    init_state, make_step = e2e_step_of(cfg, solver, sampler, hw, counts, mesh)
+    state, opt = init_state(params_to_device(host, device))
+    total = len(batch["raw"])
+    half = total // 2
+    rows = rows_of(batch, r * half, (r + 1) * half)
+    _, sampled = e2e_rows_sample(state.params, cfg, sampler, rows, r * half, total, hw, counts,
+                                 mesh)
+    exp = ref["blocks"][r]
+    for k in ("labels", "valid", "gt_inds"):
+        got, want = sampled[k], exp[k]
+        if k == "gt_inds":
+            got, want = got[exp["valid"]], want[exp["valid"]]
+        check(torch.equal(got, want), f"rank {r}: sampled {k} differ from world 1's")
+    roi_err = float((sampled["rois"] - exp["rois"]).abs().max())
+    check(roi_err <= 2e-3, f"rank {r}: sampled rois {roi_err} px from world 1's")
+    roi_align_fwd.launches = roi_align_bwd.launches = 0
+    t0 = time.perf_counter()
+    state, metrics = make_step(opt)(state, rows)
+    sync()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["step_launches"] = {"roi_align_fwd": roi_align_fwd.launches,
+                            "roi_align_bwd": roi_align_bwd.launches}
+    rel = {k: abs(float(metrics[k]) - v) / max(abs(v), 1e-12)
+           for k, v in ref["metrics"].items()}
+    out["loss_rel"] = max(rel.values())
+    check(out["loss_rel"] <= PAR_LOSS_RTOL, f"rank {r}: metrics vs world 1 {rel}")
+    out["sampled"] = {"rois_err": roi_err, "fg": int((sampled["labels"] > 0).sum())}
+    del state, opt
+    # one step at global batch 2: momentum and params against world 1's
+    # mean of the images' gradients (a ReLU flip may move one channel)
+    state, opt = init_state(params_to_device(host, device))
+    state, _ = make_step(opt)(state, rows_of(batch, r, r + 1))
+    if mesh.rank == 0:
+        rel, rest, cos = compare_grads(momentum_by_name(state), ref["momentum"])
+        p_err = max(float((v.detach().cpu() - ref["params"][k]).abs().max()
+                          / max(ref["params"][k].abs().max(), 1e-30))
+                    for k, v in state.params.items())
+        out["params"] = {"momentum_rel": rel, "momentum_rest": rest, "cos": cos,
+                         "params_rel": p_err}
+        check(rel <= FLIP_REL and rest <= GRAD_REL and cos >= GRAD_COS,
+              f"momentum after one step at global batch 2: {out['params']}")
+    del state, opt, host
+
+    # 24: inference over data 2 and over model 2 against this process
+    # running the same rows with the whole params (fp32)
+    icfg = PRESETS[PRESET].replace(compute_dtype="float32")
+    itc = TestConfig(score_thresh=0.0)
+    iparams = params_to_device(params_from_jax(init_params(icfg, seed=0)), device)
+    images, *scalars = ref["infer"]
+    out["inference"] = {}
+    for shape in ((2, 1), (1, 2)):
+        imesh = par.make_mesh(*shape, device=device)
+        args = par.shard_batch(imesh, images, *scalars)
+        roi_align_fwd.launches = 0
+        got = par.make_batched_inference_fn(icfg, itc, imesh)(
+            par.shard_params(iparams, imesh), *args)
+        sync()
+        launches = roi_align_fwd.launches
+        single = make_inference_fn(icfg, itc)(iparams, *args)
+        first = imesh.coords["data"] * len(args[0])
+        errs = [compare_outputs(to_host(got), to_host(single), first + j, j)
+                for j in range(len(args[0]))]
+        out["inference"][f"{shape[0]}x{shape[1]}"] = {"launches": launches, "compare": errs}
+        if device.type == "cuda":
+            check(launches == 2, f"inference on mesh {shape}: {launches} forward launches")
+    del iparams
+
+    # 24: evaluate_dataset on the mesh: bf16 img/s, then fp32 results
+    # against world 1's
+    ann, pics = make_eval_set(_rank_dir(eval_root, mesh.rank), eval_images,
+                              np.random.RandomState(7))
+    ds = CocoDataset(ann, os.path.dirname(ann))
+    roidb = ds.get_roidb(gt=False)
+    load = functools.partial(_from_memory, pics)
+    bcfg = PRESETS[PRESET]
+    engines = {}
+    run = functools.partial(evaluate_dataset, bcfg, eval_test_cfg(**eval_test),
+                            params_from_jax(init_params(bcfg, seed=0)), ds, verbose=False,
+                            batch_size=PAR_BATCH, mesh=mesh, engines=engines, load_image=load,
+                            device=device)
+    run(roidb=list({(e.height, e.width): e for e in reversed(roidb)}.values()))
+    roi_align_fwd.launches = 0
+    _, _, info = run(roidb=roidb)
+    out["eval"] = {"images_per_sec": info["images_per_sec"],
+                   "phase_seconds": info["phase_seconds"], "launches": roi_align_fwd.launches}
+    engines.clear()
+    ecfg, etcfg, eparams = eval32_config(icfg, eval_test)
+    _, _, info = evaluate_dataset(ecfg, etcfg, eparams, ds, verbose=False, batch_size=PAR_BATCH,
+                                  mesh=mesh, engines={}, load_image=load, device=device)
+    diff, max_box, moved = compare_results(ref["eval"], info, tie=1e-5)
+    out["eval32"] = {"diff": diff, "max_box": max_box, "moved": moved,
+                     "detections": len(info["bbox"])}
+    check(not any(diff.values()), f"rank {r}: eval results differ from world 1's: {diff}")
+    return out
+
+
+def _rank_dir(root, rank):
+    path = os.path.join(root, f"rank{rank}")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _from_memory(pics, path):
+    return pics[os.path.basename(path)]
+
+
+def phase_parallel(device, card="", eval_rate=None, backend="gloo", setup=None,
+                   infer_hw=(HEIGHT, WIDTH), eval_images=EVAL_IMAGES, eval_test=None):
+    """Phases 23-24: two ranks on the one card over gloo (both on cuda:0;
+    NCCL refuses two ranks on one device), against world 1 computed here
+    first. Returns each rank's numbers."""
+    import tempfile
+
+    from detectorch_tpu_torch.parallel.launch import run_ranks
+
+    setup, eval_test = setup or {}, eval_test or {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref_path = os.path.join(tmp, "world1.pt")
+        parallel_references(device, ref_path, tmp, setup, infer_hw, eval_images, eval_test)
+        t_ref = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = run_ranks(parallel_rank, 2, (ref_path, tmp, setup, infer_hw, eval_images,
+                                            eval_test),
+                          backend=backend, local_ranks=[device.index or 0] * 2, timeout_s=900)
+        t_ranks = time.perf_counter() - t0
+    for r in ranks:
+        log(f"[23 world 2] rank {r['rank']} on {r['device']} (gloo): e2e step at global batch "
+            f"{PAR_BATCH}, fp32: {r['step_ms']:.1f} ms, launches {r['step_launches']}; its "
+            f"sample equals world 1's ({r['sampled']['fg']} fg rois, rois within "
+            f"{r['sampled']['rois_err']:.3g} px), metrics within {r['loss_rel']:.3g} "
+            f"(rtol {PAR_LOSS_RTOL:g})" + (f"; global batch {PAR_PARAMS_BATCH}, one step: "
+                                           f"{r['params']}" if "params" in r else ""))
+    for r in ranks:
+        for shape, v in r["inference"].items():
+            log(f"[24 inference] rank {r['rank']} mesh {shape}: {v['launches']} forward "
+                f"launches; vs one process on its rows: {v['compare']}")
+        split = " ".join(f"{k}={s:.3f}s" for k, s in r["eval"]["phase_seconds"].items())
+        log(f"[24 eval] rank {r['rank']}: {r['eval']['images_per_sec']:.2f} img/s over "
+            f"{sum(c for _, _, c in eval_images)} images at global batch {PAR_BATCH} "
+            f"(loop split: {split}), {r['eval']['launches']} forward launches"
+            + (f"; phase 9 (world 1) {eval_rate:.2f} img/s" if eval_rate else "")
+            + " - two processes sharing one card, not a multi-card scaling figure")
+        log(f"[24 eval] rank {r['rank']} fp32 results vs world 1: {r['eval32']}")
+    log(f"[23-24] world 1 references {t_ref:.1f} s, two ranks {t_ranks:.1f} s")
+    if device.type == "cuda":
+        for r in ranks:
+            check(r["step_launches"] == {"roi_align_fwd": 2, "roi_align_bwd": 2},
+                  f"rank {r['rank']}: e2e step launches {r['step_launches']}")
+            check(r["eval"]["launches"] > 0, f"rank {r['rank']}: no eval launch")
+    return ranks
+
+
+def phase_dryrun(device_type="cuda", **sizes):
+    """Phase 25: dryrun_multichip(2) (data 1 x model 2) on the card."""
+    from detectorch_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    results = dryrun_multichip(2, device_type, **sizes)
+    for r in results:
+        log(f"[25 dryrun] rank {r['rank']} mesh {r['mesh']} on {r['device']}: losses "
+            f"{ {k: round(v, 4) for k, v in r['losses'].items()} }; sharded inference vs one "
+            f"process: {r['compare']}; launches {r['launches']}")
+        if device_type == "cuda":
+            check(all(n > 0 for n in r["launches"]["train"]) and r["launches"]["inference"][0] > 0,
+                  f"rank {r['rank']}: a kernel did not launch: {r['launches']}")
+    log(f"[25 dryrun] dryrun_multichip(2) in {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def per_kernel(launches, kernel):
+    """One kernel's counts of a nested {path: counts} tree."""
+    if isinstance(launches, dict) and kernel in launches:
+        return launches[kernel]
+    if isinstance(launches, dict):
+        return {k: per_kernel(v, kernel) for k, v in launches.items()}
+    return [per_kernel(v, kernel) for v in launches]
+
+
 def main() -> int:
     import torch
 
@@ -2253,11 +2782,28 @@ def main() -> int:
     bwd_summary = phase_bwd_kernel(device)
     train_launches, _ = phase_train(device, card=smi)
     phase_fp32_grads(device)
-    eval_launches = phase_eval(device, card=smi)
-    e2e_launches, _ = phase_e2e_train(device, card=smi)
+    eval_launches, eval_rate = phase_eval(device, card=smi)
+    e2e_launches, e2e_rate = phase_e2e_train(device, card=smi)
     phase_e2e_fp32_grads(device)
     c4 = phase_c4(device, smi)
     kp = phase_kp(device, smi)
+    torch.cuda.empty_cache()
+    world1 = phase_world1(device, card=smi, e2e_ms=BATCH * 1e3 / e2e_rate)
+    torch.cuda.empty_cache()
+    world2 = phase_parallel(device, card=smi, eval_rate=eval_rate)
+    dryrun = phase_dryrun()
+    parallel_launches = {
+        "world1_nccl_e2e_training": world1["launches"],
+        "world2_e2e_training": [r["step_launches"] for r in world2],
+        "world2_inference": [{m: {"roi_align_fwd": v["launches"], "roi_align_bwd": 0}
+                              for m, v in r["inference"].items()} for r in world2],
+        "world2_eval": [{"roi_align_fwd": r["eval"]["launches"], "roi_align_bwd": 0}
+                        for r in world2],
+        "dryrun": [{"training": dict(zip(("roi_align_fwd", "roi_align_bwd"),
+                                         r["launches"]["train"])),
+                    "inference": {"roi_align_fwd": r["launches"]["inference"][0],
+                                  "roi_align_bwd": 0}} for r in dryrun],
+    }
     source = "detectorch_tpu_torch/csrc"
     replaces = "detectorch_tpu/ops/pallas/roi_align_kernel.py"
     kernels = [{
@@ -2271,7 +2817,8 @@ def main() -> int:
                              "eval": eval_launches,
                              "e2e_training": e2e_launches["roi_align_fwd"],
                              **{k: v["roi_align_fwd"] for k, v in c4["launches"].items()},
-                             **{k: v["roi_align_fwd"] for k, v in kp["launches"].items()}},
+                             **{k: v["roi_align_fwd"] for k, v in kp["launches"].items()},
+                             **per_kernel(parallel_launches, "roi_align_fwd")},
         "max_abs_err": summary["max_abs_err"],
         "c4_max_abs_err": c4["kernels"]["fwd_err"],
         "keypoint_max_abs_err": max(r["max_abs_err"] for r in kp["calls"]["fwd"]),
@@ -2292,7 +2839,8 @@ def main() -> int:
                              **{k: v["roi_align_bwd"] for k, v in c4["launches"].items()
                                 if "training" in k},
                              **{k: v["roi_align_bwd"] for k, v in kp["launches"].items()
-                                if "training" in k}},
+                                if "training" in k},
+                             **per_kernel(parallel_launches, "roi_align_bwd")},
         "max_abs_err": bwd_summary["max_abs_err"],
         "c4_max_abs_err": c4["kernels"]["bwd_err"],
         "keypoint_max_abs_err": max(r["max_abs_err"] for r in kp["calls"]["bwd"]),
@@ -2303,8 +2851,17 @@ def main() -> int:
         "library_ms": None,  # nor its feature gradient
         "calls": bwd_summary["calls"] + c4["kernels"]["bwd_calls"] + kp["calls"]["bwd"],
     }]
+    parallel = {
+        "world1_nccl": {k: world1[k] for k in ("ms_per_step", "plain_ms_per_step",
+                                               "allreduce_bucketed_ms", "allreduce_per_leaf_ms")},
+        "phase10_ms_per_step": BATCH * 1e3 / e2e_rate,
+        "world2_gloo_one_card": [{"rank": r["rank"], "e2e_fp32_step_ms": r["step_ms"],
+                                  "eval_images_per_sec": r["eval"]["images_per_sec"]}
+                                 for r in world2],
+        "phase9_eval_images_per_sec": eval_rate,
+    }
     log(smi)
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels, "parallel": parallel}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -15,7 +15,9 @@ COCOeval (``eval/coco_eval``, OKS for keypoints).
     4-thread pool, as the JAX engine has, was twice as slow on the card's
     host).
   * ``evaluate_dataset``: the loop, with a prefetching loader and a 1-deep
-    (single) or 2-deep (batched) submit/finalize pipeline.
+    (single) or 2-deep (batched) submit/finalize pipeline; on a mesh
+    (``parallel.mesh``) every rank plans the same batches and runs its data
+    rows of each, and the results are gathered on every rank.
 
 Preprocessing (``preprocess``) is host numpy only and runs in the loader's
 threads; every host-to-device copy and every CUDA call happens on the
@@ -41,6 +43,7 @@ from detectorch_tpu_torch.config import ModelConfig, TestConfig
 from detectorch_tpu_torch.data import transforms as T
 from detectorch_tpu_torch.data.coco import CocoDataset, RoidbEntry
 from detectorch_tpu_torch.data.device_input import (
+    RAW_STRIDE,
     device_preprocess,
     pack_tables_meta,
     prepare_raw,
@@ -53,6 +56,7 @@ from detectorch_tpu_torch.models.detector import (
     make_keypoint_fn,
     make_mask_fn,
 )
+from detectorch_tpu_torch.parallel import mesh as par
 
 
 def detections_to_coco_bbox(det_boxes, det_scores, det_classes, image_id, contiguous_to_json):
@@ -97,13 +101,17 @@ def detections_to_coco_keypoints(keypoints, det_scores, det_classes, image_id,
 class InferenceEngine:
     """Single-image inference. `params` are port-layout tensors
     (``checkpoint.convert``, ``checkpoint.caffe2_import``), moved to
-    `device` once."""
+    `device` once; with a `mesh`, this rank's shard of them
+    (``parallel.mesh.shard_params``), fc6/fc7 running column-parallel."""
 
     def __init__(self, cfg: ModelConfig, test_cfg: TestConfig, params: Dict,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cfg = cfg
         self.test_cfg = test_cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            params = par.shard_params(params, mesh)
         self.params = params_to_device(params, self.device)
         self._compiled: Dict = {}
 
@@ -124,6 +132,17 @@ class InferenceEngine:
         meta = args[2]
         return (tuple(args[0].shape),
                 T.bucket_shape(int(meta[2]), int(meta[3]), self._pad_stride(), self._buckets()))
+
+    def key_of_dims(self, h: int, w: int):
+        """The sample key of an h x w image, from its size alone: what
+        ``sample_key(preprocess(image)[0])`` gives."""
+        ts, max_size = self.test_cfg.target_size, self.test_cfg.max_size
+        scale = T.compute_scale(h, w, ts, max_size)
+        out = T.bucket_shape(int(np.round(h * scale)), int(np.round(w * scale)),
+                             self._pad_stride(), self._buckets())
+        if not self.test_cfg.device_preprocess:
+            return (*out, 3)
+        return ((T.round_up(h, RAW_STRIDE), T.round_up(w, RAW_STRIDE), 3), out)
 
     def _needs_exact_check(self):
         """True if the program can flag an inexact result that needs the
@@ -147,7 +166,7 @@ class InferenceEngine:
         """The program for this sample key; exact=True without the NMS
         prefilter."""
         tcfg = self.test_cfg.replace(nms_topk_prefilter=0) if exact else self.test_cfg
-        fwd = make_inference_fn(self.cfg, tcfg)
+        fwd = make_inference_fn(self.cfg, tcfg, mesh=self.mesh)
         return self._wrap_raw(fwd, key) if self.test_cfg.device_preprocess else fwd
 
     def _fn(self, key):
@@ -318,17 +337,24 @@ class InferenceEngine:
 
 class BatchedInferenceEngine:
     """Bucket-grouped batched inference: one program per sample key, run on
-    batches of `batch_size` samples of that key. The throughput path."""
+    batches of `batch_size` samples of that key. The throughput path.
+
+    With a `mesh` (``parallel.mesh``), `batch_size` is the global batch:
+    each rank runs batches of its batch_size / data samples, its data rows
+    of the global batch (``evaluate_dataset`` hands them out), with this
+    rank's shard of the params."""
 
     def __init__(self, cfg: ModelConfig, test_cfg: TestConfig, params: Dict,
                  batch_size: int = 4, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("inference over a device mesh is not ported yet")
         self.cfg = cfg
         self.test_cfg = test_cfg
-        self.batch_size = batch_size
+        self.mesh = mesh
+        ranks = 1 if mesh is None else mesh.shape["data"]
+        if batch_size % ranks:
+            raise ValueError(f"batch {batch_size} does not split over {ranks} data ranks")
+        self.batch_size = batch_size // ranks
         self._compiled: Dict = {}
-        self._single = InferenceEngine(cfg, test_cfg, params, device)
+        self._single = InferenceEngine(cfg, test_cfg, params, device, mesh)
         self.params = self._single.params  # on the device once (shared)
         # images rerun through the full-NMS program because the NMS
         # prefilter overflowed (diagnostic)
@@ -370,6 +396,9 @@ class BatchedInferenceEngine:
 
     def sample_key(self, args):
         return self._single.sample_key(args)
+
+    def key_of_dims(self, h: int, w: int):
+        return self._single.key_of_dims(h, w)
 
     def submit_batch(self, samples):
         """Run one batch. samples: list of (args, oh, ow) from preprocess(),
@@ -420,6 +449,20 @@ class BatchedInferenceEngine:
         return self.finalize_batch(self.submit_batch(samples), samples)
 
 
+def plan_batches(keys, batch_size: int) -> List[List[int]]:
+    """The batches of the batched loop, as lists of indices into `keys`
+    (each image's sample key): images join their key's bucket in order, a
+    full bucket is a batch, and the partial buckets follow in the order
+    their keys first came after the last full batch of that key."""
+    buckets: Dict[tuple, list] = {}
+    batches = []
+    for i, key in enumerate(keys):
+        buckets.setdefault(key, []).append(i)
+        if len(buckets[key]) == batch_size:
+            batches.append(buckets.pop(key))
+    return batches + list(buckets.values())
+
+
 def evaluate_dataset(
     cfg: ModelConfig,
     test_cfg: TestConfig,
@@ -450,6 +493,12 @@ def evaluate_dataset(
     files and the evaluator pickles are saved (``eval.results_io``);
     `per_class_ap` prints the per-category AP table.
 
+    With a `mesh` (``parallel.mesh``, every rank calls this), `batch_size`
+    is the global batch: every rank plans the same batches
+    (``plan_batches``, from the roidb's image sizes), loads, runs and
+    finalizes its data rows of each on `device`, and the results are
+    gathered on every rank in the order a single process gives them.
+
     info holds the COCO results ('bbox', 'segm', 'keypoints'),
     'keypoints_stats' (the 10 OKS stats of a keypoint preset, else None),
     'images_per_sec' (host loading, device work, paste and RLE included) and
@@ -469,8 +518,9 @@ def evaluate_dataset(
             test_cfg = test_cfg.replace(target_size=target_sizes[0])
             target_sizes = None
     multiscale = target_sizes is not None
-    if multiscale and batch_size > 1:
-        raise ValueError("multi-scale eval runs the single-image engine (batch_size=1)")
+    if multiscale and (batch_size > 1 or mesh is not None):
+        raise ValueError("multi-scale eval runs the single-image engine (batch_size=1, "
+                         "no mesh)")
 
     from detectorch_tpu_torch.data.loader import PrefetchLoader
 
@@ -493,27 +543,25 @@ def evaluate_dataset(
             args, oh, ow = engine.preprocess(load_image(entry.file_path), proposals)
             return entry, args, oh, ow
 
-    loader = PrefetchLoader(roidb, make_sample, num_workers=4, prefetch=16)
     phase_s = {"load": 0.0, "submit": 0.0, "finalize": 0.0}
     results_iter = []
     t0 = time.time()
-    if batch_size > 1:
+    if batch_size > 1 or mesh is not None:
         # keyed by its call parameters: a reused dict must not serve another
-        # batch size
-        bkey = ("batched", batch_size)
+        # batch size or mesh
+        bkey = ("batched", batch_size) + (() if mesh is None else (tuple(mesh.shape.items()),))
         if bkey not in engines:
             engines[bkey] = BatchedInferenceEngine(cfg, test_cfg, params, batch_size, mesh,
                                                    device)
         batched = engines[bkey]
-        buckets: Dict[tuple, list] = {}
         # 2-deep pipeline: batch i is fetched and pasted on the host after
         # batches i+1 and i+2 were submitted
-        pending = deque()  # of (group, device outputs)
+        pending = deque()  # of (group, device outputs, rows to emit)
 
         def _drain_one():
-            group, out = pending.popleft()
+            group, out, emit = pending.popleft()
             ts = time.time()
-            res = batched.finalize_batch(out, [g[1] for g in group])
+            res = batched.finalize_batch(out, [g[1] for g in group[:emit]])
             phase_s["finalize"] += time.time() - ts
             results_iter.extend((g[0], r) for g, r in zip(group, res))
             if verbose and len(results_iter) % (batch_size * 8) < batch_size:
@@ -522,34 +570,57 @@ def evaluate_dataset(
                 print(f"  {len(results_iter)}/{len(roidb)} ({rate:.2f} img/s, "
                       f"{batched.rerun_count} exact reruns; {ph})", flush=True)
 
-        def _flush(group):
+        def _flush(group, emit):
             ts = time.time()
             out = batched.submit_batch([g[1] for g in group])
             phase_s["submit"] += time.time() - ts
-            pending.append((group, out))
+            pending.append((group, out, emit))
             if len(pending) > 2:
                 _drain_one()
 
-        t_load = time.time()
-        for entry, args, oh, ow in loader:
-            phase_s["load"] += time.time() - t_load
-            key = batched.sample_key(args)
-            buckets.setdefault(key, []).append((entry, (args, oh, ow)))
-            if len(buckets[key]) == batch_size:
-                _flush(buckets.pop(key))
+        # every rank plans the same batches from the images' sizes (images
+        # join their key's bucket in order, a full bucket is a batch) and
+        # runs its data rows of each; a rank without any runs the batch's
+        # last image and emits nothing (model peers must run every batch
+        # together). Without a mesh, this process is the one rank.
+        on = mesh or par.Mesh(1, 1, device)
+        groups = plan_batches([batched.key_of_dims(e.height, e.width) for e in roidb],
+                              batch_size)
+        local, ranks, me = batched.batch_size, on.shape["data"], on.coords["data"]
+
+        def rows(g, r):
+            return g[r * local:(r + 1) * local]
+
+        mine = [rows(g, me) or g[-1:] for g in groups]
+        loader = iter(PrefetchLoader([roidb[i] for m in mine for i in m], make_sample,
+                                     num_workers=4, prefetch=16))
+        for g, m in zip(groups, mine):
             t_load = time.time()
-        for group in buckets.values():
-            _flush(group)
+            group = [next(loader) for _ in m]
+            phase_s["load"] += time.time() - t_load
+            for entry, args, _, _ in group:
+                if batched.sample_key(args) != batched.key_of_dims(entry.height, entry.width):
+                    raise ValueError(f"image {entry.file_path} is not the "
+                                     f"{entry.height}x{entry.width} of its roidb entry")
+            _flush([(e, (a, oh, ow)) for e, a, oh, ow in group], len(rows(g, me)))
         while pending:
             _drain_one()
+        # every data rank's results (one model rank of each), in the plan's
+        # order: batch by batch, data rank by data rank
+        parts = par.all_gather_objects([r for _, r in results_iter], on)
+        parts = [iter(parts[r * on.shape["model"]]) for r in range(ranks)]
+        results_iter = [(roidb[i], next(parts[r])) for g in groups
+                        for r in range(ranks) for i in rows(g, r)]
     elif multiscale:
         sizes = [int(s) for s in target_sizes]
-        for entry, im, proposals in loader:
+        for entry, im, proposals in PrefetchLoader(roidb, make_sample, num_workers=4,
+                                                   prefetch=16):
             results_iter.append((entry, engine.run_image_multiscale(im, sizes, proposals)))
     else:
         pending = None  # (entry, device outputs, args, oh, ow): 1-deep pipeline
         t_load = time.time()
-        for entry, args, oh, ow in loader:
+        for entry, args, oh, ow in PrefetchLoader(roidb, make_sample, num_workers=4,
+                                                  prefetch=16):
             ts = time.time()
             phase_s["load"] += ts - t_load
             out = engine.submit(args)
@@ -586,7 +657,7 @@ def evaluate_dataset(
             rate = (i + 1) / (time.time() - t0)
             print(f"  {i+1}/{len(roidb)} ({rate:.2f} img/s)", flush=True)
 
-    infer_seconds = time.time() - t0  # loading + device + paste + RLE + collect
+    infer_seconds = time.time() - t0  # loading + device + paste + RLE + gather + collect
     if verbose:
         print("  time split: " + " ".join(f"{k}={v:.2f}s" for k, v in phase_s.items()),
               flush=True)

@@ -107,13 +107,14 @@ def backbone_features(params, cfg: ModelConfig, images):
     return resnet_mod.c4_body(params, x, cfg.arch)
 
 
-def box_head(params, cfg: ModelConfig, roi_feats):
+def box_head(params, cfg: ModelConfig, roi_feats, mesh=None):
     """The box head on (R, S, S, C) fp32 roi features -> (R, D) fp32: fc6/fc7
-    (FPN, D = 1024), or res5 + mean over the features cast to the compute
-    dtype (C4, D = 2048)."""
+    (FPN, D = 1024; column-parallel over `mesh` where params hold model
+    rows), or res5 + mean over the features cast to the compute dtype (C4,
+    D = 2048)."""
     dtype = compute_dtype(cfg)
     if cfg.use_fpn:
-        return heads_mod.mlp_box_head(params, roi_feats, dtype)
+        return heads_mod.mlp_box_head(params, roi_feats, dtype, mesh)
     return heads_mod.res5_box_head(params, roi_feats.to(dtype), cfg.arch)
 
 
@@ -213,13 +214,13 @@ def blob_bounds(cfg: ModelConfig, image_hw, im_scale, orig_h, orig_w):
 
 
 def box_branch(params, cfg: ModelConfig, test_cfg: TestConfig, feats, rois,
-               roi_valid, im_scale, orig_h, orig_w, roi_align=None):
+               roi_valid, im_scale, orig_h, orig_w, roi_align=None, mesh=None):
     """RoIAlign (``roi_features``) -> box head -> predictors -> per-class
     NMS + cap. feats: the pyramid (FPN) or c4 (C4). Returns (cls_scores
     (B,N,C), bbox_deltas (B,N,4C), Detections)."""
     bsz, n = rois.shape[:2]
     roi_feats = roi_features(cfg, feats, rois, cfg.roi_size, roi_align)
-    box_feats = box_head(params, cfg, roi_feats.reshape(bsz * n, *roi_feats.shape[2:]))
+    box_feats = box_head(params, cfg, roi_feats.reshape(bsz * n, *roi_feats.shape[2:]), mesh)
     del roi_feats
     cls_scores, bbox_deltas = heads_mod.box_predictors(params, box_feats,
                                                        dtype=compute_dtype(cfg))
@@ -271,7 +272,7 @@ def _check_ported(cfg: ModelConfig):
         check_matmul_precision(cfg.roi_align_precision)
 
 
-def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=None):
+def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=None, mesh=None):
     """Build the batched inference program for `cfg` (FPN or C4).
 
     Returns fn(params, images, im_scale, orig_h, orig_w[, proposals,
@@ -284,7 +285,9 @@ def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=None):
         bool (all valid if omitted): Fast R-CNN mode (cfg.use_rpn False).
     `roi_align` is the RoIAlign wrapper (the kernel on CUDA tensors; see
     ``roi_features``); pass the plain ``ops.roi_align.multilevel_roi_align``
-    (FPN) or ``roi_align_matmul`` (C4) only to compare the two.
+    (FPN) or ``roi_align_matmul`` (C4) only to compare the two. `mesh`
+    (``parallel.mesh``) runs fc6/fc7 column-parallel where params hold its
+    model rows; the batch is whatever rows the caller passes.
     """
     _check_ported(cfg)
     anchor_cache: Dict = {}
@@ -305,7 +308,7 @@ def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=None):
                          else torch.ones(rois.shape[:2], dtype=torch.bool, device=rois.device))
         cls_scores, bbox_deltas, dets = box_branch(
             params, cfg, test_cfg, feats, rois, roi_valid, im_scale, orig_h, orig_w,
-            roi_align)
+            roi_align, mesh)
         masks = keypoints = None
         if cfg.use_mask:
             masks = mask_branch(params, cfg, feats, dets.boxes, dets.classes, im_scale,

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from detectorch_tpu_torch.models.resnet import c5_head, conv, to_nchw, to_nhwc
+from detectorch_tpu_torch.parallel.mesh import column_parallel
 
 
 def linear(params, x, name: str, dtype=torch.bfloat16):
@@ -35,11 +36,27 @@ def linear(params, x, name: str, dtype=torch.bfloat16):
     return torch.addmm(b, x.to(dtype).float(), w.t())
 
 
-def mlp_box_head(params, roi_feats, dtype=torch.bfloat16):
-    """fc6 + fc7: roi_feats (N, 7, 7, 256) -> (N, 1024) fp32."""
+def mlp_box_head(params, roi_feats, dtype=torch.bfloat16, mesh=None):
+    """fc6 + fc7: roi_feats (N, 7, 7, 256) -> (N, 1024) fp32.
+
+    Where `params` hold a model rank's rows of fc6/fc7
+    (``parallel.mesh.shard_params`` on a mesh whose 'model' axis is > 1),
+    each runs column-parallel over `mesh`: the same bf16-rounded operands
+    and fp32 product on the rank's rows, then the columns gathered."""
     x = roi_feats.reshape(roi_feats.shape[0], -1)
-    x = F.relu(linear(params, x, "fc6", dtype))
-    return F.relu(linear(params, x, "fc7", dtype))
+    # each layer's full width is the next layer's input width
+    x = F.relu(_box_fc(params, x, "fc6", params["fc7_w"].shape[1], dtype, mesh))
+    return F.relu(_box_fc(params, x, "fc7", params["cls_score_w"].shape[1], dtype, mesh))
+
+
+def _box_fc(params, x, name: str, width: int, dtype, mesh):
+    rows = params[f"{name}_w"].shape[0]
+    if rows == width:
+        return linear(params, x, name, dtype)
+    if mesh is None or rows * mesh.shape["model"] != width:
+        raise ValueError(f"{name}_w holds {rows} of {width} rows, which "
+                         f"{'no mesh' if mesh is None else mesh} shards so")
+    return column_parallel(x, mesh, lambda xs: linear(params, xs, name, dtype))
 
 
 def res5_box_head(params, roi_feats, arch: str = "resnet50"):

@@ -23,6 +23,15 @@ options it keeps, ``ckpt-<step>`` checkpoints under --out and ``--resume``.
     queue, in the same order and with the same draws as without it; the
     copy to the device stays on the main thread.
 
+Under ``torchrun --nproc_per_node N`` it trains on N ranks, one card each
+(``parallel.mesh``: NCCL for ``--device cuda``, whose rank r runs on
+``cuda:LOCAL_RANK``; gloo for ``--device cpu``), as the JAX tool shards its
+batch over every device: the global batch is --batch-size (default: one
+image per rank) and must split over the ranks; each rank builds its rows of
+the batch that one process would draw, the gradients are averaged over the
+ranks, and rank 0 logs and writes the checkpoints, which resume on any
+number of ranks.
+
 The roidb comes from ``data.coco.roidb_for_training``; images are read and
 resized by ``data.transforms`` and masks rasterised by ``train.sampler``,
 which use OpenCV (cv2).
@@ -61,7 +70,7 @@ def parse_args(argv=None):
     p.add_argument("--fpn", action="store_true")
     p.add_argument("--out", default="runs/fast_rcnn")
     p.add_argument("--batch-size", type=int, default=None,
-                   help="default: 1 (one device)")
+                   help="the global batch; default: one image per rank")
     p.add_argument("--max-iter", type=int, default=360000)
     p.add_argument("--base-lr", type=float, default=0.01)
     p.add_argument("--checkpoint-period", type=int, default=20000)
@@ -121,6 +130,26 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     import torch
+    import torch.distributed as dist
+
+    from detectorch_tpu_torch.parallel.mesh import init_distributed_from_env, make_mesh
+
+    device = torch.device(args.device)
+    owns_group = not dist.is_initialized()
+    joined = init_distributed_from_env("nccl" if device.type == "cuda" else "gloo")
+    if joined and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())  # cuda:LOCAL_RANK
+    mesh = make_mesh(device=device)
+    try:
+        _train(args, device, mesh if joined else None)
+    finally:
+        if joined and owns_group:
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh):
+    """The training loop on `device`; `mesh` is None in a single process."""
+    import torch
 
     from detectorch_tpu_torch.checkpoint import caffe2_import as c2
     from detectorch_tpu_torch.checkpoint import store
@@ -135,7 +164,16 @@ def main(argv=None):
     )
     from detectorch_tpu_torch.utils.stats import TrainingStats
 
-    device = torch.device(args.device)
+    ranks, rank = (1, 0) if mesh is None else (mesh.shape["data"], mesh.coords["data"])
+    lead = mesh is None or mesh.rank == 0
+    batch_size = args.batch_size or ranks
+    if batch_size % ranks:
+        raise SystemExit(f"--batch-size {batch_size} does not split over {ranks} ranks")
+
+    def log(msg):
+        if lead:
+            print(msg, flush=True)
+
     if args.keypoints:
         preset = "e2e_keypoint_rcnn_R-50-FPN_1x"
     else:
@@ -154,7 +192,8 @@ def main(argv=None):
         roi_align_impl = args.roi_align
     blob_hw = tuple(args.blob)
     kwargs = dict(train_mask=args.masks, device_input=args.device_preprocess, blob_hw=blob_hw,
-                  roi_align_impl=roi_align_impl, bwd_precision=args.roi_align_bwd_precision)
+                  roi_align_impl=roi_align_impl, bwd_precision=args.roi_align_bwd_precision,
+                  mesh=mesh)
     if args.e2e:
         from detectorch_tpu_torch.train.e2e import make_e2e_train_step
 
@@ -163,15 +202,15 @@ def main(argv=None):
     else:
         init_state, make_step = make_train_step(cfg, solver, **kwargs)
 
-    print("loading roidb...", flush=True)
+    log("loading roidb...")
     _, roidb = roidb_for_training(args.ann, args.imdir, args.proposals,
                                   require_keypoints=args.keypoints)
-    print(f"roidb: {len(roidb)} entries", flush=True)
+    log(f"roidb: {len(roidb)} entries")
 
     params = params_from_jax(init_params(cfg, seed=args.seed))
     if args.base_cnn:
         params.update(c2.import_base_cnn(c2.load_caffe2_pkl(args.base_cnn), cfg.arch))
-        print("loaded base CNN weights", flush=True)
+        log("loaded base CNN weights")
     params = params_to_device(params, device)
     state, optimizer = init_state(params)
     del params
@@ -180,11 +219,15 @@ def main(argv=None):
     if args.resume:
         latest = store.latest_checkpoint(args.out)
         if latest:
-            state = load_state_dict(state, store.restore_checkpoint(latest, device))
+            state = load_state_dict(state, store.restore_checkpoint(latest, device), mesh)
             start_iter = state.step
-            print(f"resumed from {latest} at iter {start_iter}", flush=True)
+            log(f"resumed from {latest} at iter {start_iter}")
+    local = batch_size // ranks
+    log(f"global batch {batch_size} over {ranks} rank(s)"
+        + ("" if mesh is None else f", mesh {mesh.shape}"))
 
-    make_batch_np = BatchMaker(args, cfg, sampler_cfg, test_cfg, roidb)
+    make_batch_np = BatchMaker(args, cfg, sampler_cfg, test_cfg, roidb, batch_size,
+                               range(rank * local, (rank + 1) * local))
 
     def put_batch(np_batch):
         # the copy to the device stays on the main thread
@@ -218,10 +261,12 @@ def main(argv=None):
         losses = {k: float(metrics[k]) for k in loss_keys}
         stats.iter_toc()
         stats.update_iter_stats(it, losses, {"accuracy": float(metrics["accuracy"])})
-        stats.log_iter_stats(it, metrics["lr"])
+        if lead:
+            stats.log_iter_stats(it, metrics["lr"])
         if (it + 1) % args.checkpoint_period == 0 or (it + 1) == args.max_iter:
-            path = store.save_checkpoint(args.out, it + 1, state_dict(state))
-            print(f"saved {path}", flush=True)
+            saved = state_dict(state, mesh)  # a collective where params are sharded
+            if lead:
+                log(f"saved {store.save_checkpoint(args.out, it + 1, saved)}")
 
 
 # one fixed gt capacity per image, as the JAX trainer's (COCO has at most ~93)
@@ -236,14 +281,16 @@ class BatchMaker:
     Mask, Keypoint R-CNN) or the padded gt boxes, classes, mask rasters and
     keypoints (``--e2e``; crowd gts dropped)."""
 
-    def __init__(self, args, cfg, sampler_cfg, test_cfg, roidb):
+    def __init__(self, args, cfg, sampler_cfg, test_cfg, roidb, batch_size=None, rows=None):
         from detectorch_tpu_torch.data.device_input import RAW_STRIDE
 
         self.args, self.cfg, self.sampler_cfg, self.test_cfg = args, cfg, sampler_cfg, test_cfg
         self.roidb = roidb
         self.rng = np.random.RandomState(args.seed)
         self.blob_hw = tuple(args.blob)
-        self.batch_size = args.batch_size or 1
+        self.batch_size = batch_size or args.batch_size or 1
+        # the rows of each batch this rank builds: all of them in one process
+        self.rows = set(range(self.batch_size) if rows is None else rows)
         # the sampler puts foreground rows first, so the first fg-capacity
         # rows hold every possible mask- or keypoint-training roi
         self.fg_rows = int(np.round(sampler_cfg.fg_fraction * sampler_cfg.rois_per_image))
@@ -252,9 +299,19 @@ class BatchMaker:
                        max(-(-e.width // RAW_STRIDE) * RAW_STRIDE for e in roidb))
 
     def __call__(self):
+        """The next batch's rows of this rank. Every row of the global batch
+        takes its draws from the one RandomState, as in one process; the
+        rows of other ranks read no image."""
         batch = {}
-        for _ in range(self.batch_size):
+        for i in range(self.batch_size):
             e = self.roidb[self.rng.randint(len(self.roidb))]
+            if i not in self.rows:
+                if not self.args.e2e:
+                    # the draws of the roi sampler depend on the entry alone
+                    from detectorch_tpu_torch.train.sampler import sample_rois
+
+                    sample_rois(e, 1.0, self.rng, self.sampler_cfg, self.cfg.num_classes)
+                continue
             for k, v in self._one(e).items():
                 batch.setdefault(k, []).append(v)
         return {k: np.stack(v) for k, v in batch.items()}

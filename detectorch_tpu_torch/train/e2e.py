@@ -290,10 +290,11 @@ def torch_uniforms(seed: int):
     """The default source of a step's uniforms: for image i of step s, a
     ``torch.Generator`` on the device seeded from (seed, s, i) draws the
     five vectors in ``UNIFORM_KEYS`` order. Returns draw(step, batch_size,
-    n_anchors, n_cand, device) -> {key: (B, n)}."""
-    def draw(step, batch_size, n_anchors, n_cand, device):
+    n_anchors, n_cand, device, first=0) -> {key: (B, n)}, the images
+    first .. first + batch_size - 1 of the step's global batch."""
+    def draw(step, batch_size, n_anchors, n_cand, device, first=0):
         out = {k: [] for k in UNIFORM_KEYS}
-        for i in range(batch_size):
+        for i in range(first, first + batch_size):
             gen = torch.Generator(device=device)
             gen.manual_seed(_image_seed(seed, step, i))
             for key in UNIFORM_KEYS:
@@ -306,11 +307,31 @@ def torch_uniforms(seed: int):
     return draw
 
 
+def rank_uniforms(uniforms: Optional[Callable], seed: int):
+    """draw(step, first, count, total, n_anchors, n_cand, device): the
+    uniforms of images first .. first + count - 1 of a step's global batch
+    of `total`. By default each rank draws only its own images from
+    ``torch_uniforms(seed)``; an injected `uniforms` (step, batch_size,
+    n_anchors, n_cand, device) is asked for the global batch, of which the
+    rank keeps its rows, so it sees the rows a single process would."""
+    if uniforms is None:
+        own = torch_uniforms(seed)
+        return lambda step, first, count, total, na, nc, dev: own(step, count, na, nc, dev,
+                                                                   first)
+
+    def draw(step, first, count, total, n_anchors, n_cand, device):
+        u = uniforms(step, total, n_anchors, n_cand, device)
+        return {k: v[first:first + count] for k, v in u.items()}
+
+    return draw
+
+
 def e2e_losses(params, cfg: ModelConfig, sampler_cfg: SamplerConfig, images, gt_boxes,
                gt_classes, gt_valid, info, uniforms: Callable, rpn_batch_size: int = 256,
                train_pre_nms: int = 12000, train_post_nms: int = 2000,
                extras: Optional[Dict] = None, roi_align=None,
-               anchor_cache: Optional[dict] = None, stage: Optional[Callable] = None):
+               anchor_cache: Optional[dict] = None, stage: Optional[Callable] = None,
+               mesh=None):
     """Joint RPN + box (+ mask or keypoint) loss of a batch; the backbone
     runs once.
 
@@ -326,7 +347,8 @@ def e2e_losses(params, cfg: ModelConfig, sampler_cfg: SamplerConfig, images, gt_
     with gt_keypoints (B, G, P, 3) input-scaled [x, y, v], on a preset with
     a keypoint config, the keypoint branch over the same rows.
     stage(name), if given, is called after each stage (the chip smoke test
-    synchronises there to time them).
+    synchronises there to time them). `mesh` runs fc6/fc7 column-parallel
+    where params hold its model rows.
 
     Returns (total (B,), metrics {name: (B,)} with JAX's keys, SampledRois)."""
     extras = extras or {}
@@ -391,7 +413,7 @@ def e2e_losses(params, cfg: ModelConfig, sampler_cfg: SamplerConfig, images, gt_
 
     _, metrics = roi_heads_loss(params, cfg, feats, sampled.rois, sampled.labels, targets,
                                 inside, (inside > 0).to(inside.dtype), sampled.valid,
-                                mask_targets, mask_valid, roi_align, kp_labels, kp_valid)
+                                mask_targets, mask_valid, roi_align, kp_labels, kp_valid, mesh)
     # summed in JAX's order: box, RPN, mask, keypoints
     total = metrics["loss_cls"] + metrics["loss_bbox"] + loss_rpn_cls + loss_rpn_bbox
     for k in ("loss_mask", "loss_kps"):
@@ -408,7 +430,7 @@ def make_e2e_train_step(cfg: ModelConfig, solver_cfg: SolverConfig = SolverConfi
                         train_mask: bool = False, train_keypoints: bool = False,
                         device_input: bool = False, blob_hw: Tuple[int, int] = (1344, 1344),
                         roi_align_impl: str = "gather", bwd_precision: str = "bf16",
-                        uniforms: Optional[Callable] = None):
+                        uniforms: Optional[Callable] = None, mesh=None):
     """(init_state, make_step) for e2e training, as ``train_step.make_train_step``.
 
     Batch schema (leading batch axis, tensors on the params' device): image
@@ -423,13 +445,19 @@ def make_e2e_train_step(cfg: ModelConfig, solver_cfg: SolverConfig = SolverConfi
 
     uniforms(step, batch_size, n_anchors, n_cand, device) -> {key: (B, n)}
     supplies each step's uniforms; by default ``torch_uniforms(seed)``.
+    On a `mesh` (``parallel.mesh``) each rank's batch is its data rows of
+    the global batch, image i of data rank r draws the uniforms of global
+    image r * B + i (``rank_uniforms``), and the update is the global
+    batch's (``train_step.update``).
     roi_align_impl and bwd_precision take JAX's names
     (``ops.roi_align_fused.check_roi_align_impl``; the C4 presets take
     'gather', as JAX's do)."""
     if train_keypoints and cfg.keypoint is None:
         raise ValueError("train_keypoints=True needs the keypoint preset")
     check_step_config(cfg, train_mask, roi_align_impl, bwd_precision)
-    draw = uniforms or torch_uniforms(seed)
+    draw = rank_uniforms(uniforms, seed)
+    ranks = 1 if mesh is None else mesh.shape["data"]
+    rank = 0 if mesh is None else mesh.coords["data"]
     anchor_cache: Dict = {}
 
     def make_step(optimizer: torch.optim.SGD):
@@ -446,11 +474,12 @@ def make_e2e_train_step(cfg: ModelConfig, solver_cfg: SolverConfig = SolverConfi
             total, metrics, _ = e2e_losses(
                 state.params, cfg, sampler_cfg, images, batch["gt_boxes"],
                 batch["gt_classes"], batch["gt_valid"], info,
-                lambda n_anchors, n_cand: draw(state.step, bsz, n_anchors, n_cand, dev),
+                lambda n_anchors, n_cand: draw(state.step, rank * bsz, bsz, ranks * bsz,
+                                               n_anchors, n_cand, dev),
                 train_pre_nms=train_pre_nms, train_post_nms=train_post_nms, extras=extras,
-                anchor_cache=anchor_cache)
-            return update(state, optimizer, total, metrics, solver_cfg)
+                anchor_cache=anchor_cache, mesh=mesh)
+            return update(state, optimizer, total, metrics, solver_cfg, mesh)
 
         return step_fn
 
-    return make_init_state(solver_cfg), make_step
+    return make_init_state(solver_cfg, mesh), make_step

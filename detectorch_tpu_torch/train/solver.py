@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from detectorch_tpu_torch.config import SolverConfig
+from detectorch_tpu_torch.parallel import mesh as par
 
 
 def get_lr_at_iter(it: int, cfg: SolverConfig = SolverConfig()) -> float:
@@ -54,17 +55,35 @@ def make_optimizer(cfg: SolverConfig, params: Dict[str, torch.Tensor],
                            weight_decay=cfg.weight_decay)
 
 
-def apply_update(optimizer: torch.optim.SGD, step: int, cfg: SolverConfig) -> None:
+def clip_global_norm_(params: Sequence[torch.Tensor], max_norm: float, mesh=None,
+                      sharded: Sequence[torch.Tensor] = ()) -> None:
+    """``clip_grad_norm_`` over the gradients of `params`, of which
+    `sharded` hold a model rank's rows: their squares are summed over
+    'model', and every other leaf (the same on each model rank) is counted
+    once. Without sharded leaves this is ``clip_grad_norm_`` itself."""
+    ids = {id(p) for p in sharded}
+    norm = torch.nn.utils.get_total_norm([p.grad for p in params if id(p) not in ids])
+    if sharded:
+        rows = torch.nn.utils.get_total_norm([p.grad for p in sharded]).square()
+        par.all_reduce_sum([rows], mesh, "model")
+        norm = torch.sqrt(rows + norm.square())
+    torch.nn.utils.clip_grads_with_norm_(params, max_norm, norm)
+
+
+def apply_update(optimizer: torch.optim.SGD, step: int, cfg: SolverConfig, mesh=None,
+                 sharded: Sequence[torch.Tensor] = ()) -> None:
     """One update from the gradients in ``.grad``: clip their global norm
     to cfg.clip_grad_norm, set the LR of iteration `step`, step, and clear
     the gradients. A trainable leaf that the loss did not reach (the RPN
     head in a Fast R-CNN step) gets a zero gradient, so weight decay and
-    momentum still move it, as in the optax chain; SGD would skip it."""
+    momentum still move it, as in the optax chain; SGD would skip it. On a
+    mesh, `sharded` are the leaves that hold this rank's model rows, and
+    the norm is the global one (``clip_global_norm_``)."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    torch.nn.utils.clip_grad_norm_(params, cfg.clip_grad_norm)
+    clip_global_norm_(params, cfg.clip_grad_norm, mesh, sharded)
     lr = get_lr_at_iter(step, cfg)
     for group in optimizer.param_groups:
         group["lr"] = lr

@@ -39,6 +39,7 @@ from detectorch_tpu_torch.models.detector import (
 )
 from detectorch_tpu_torch.ops.cuda.roi_align_kernel import check_precision
 from detectorch_tpu_torch.ops.roi_align import check_matmul_precision
+from detectorch_tpu_torch.parallel import mesh as par
 from detectorch_tpu_torch.ops.roi_align_fused import (
     check_roi_align_impl,
     roi_align_c4_fused,
@@ -52,28 +53,59 @@ class TrainState(NamedTuple):
     step: int
     params: Dict[str, torch.Tensor]   # leaves; trainable ones require grad
     optimizer: torch.optim.SGD
+    # leaves that hold this rank's model rows (``parallel.mesh.shard_params``)
+    sharded: Tuple[str, ...] = ()
 
 
-def state_dict(state: TrainState) -> Dict:
-    """What a checkpoint holds: step, params and the optimizer's state."""
-    return {"step": state.step,
-            "params": {k: v.detach() for k, v in state.params.items()},
-            "optimizer": state.optimizer.state_dict()}
+def _momentum_names(state: TrainState):
+    """The optimizer's parameter indices -> leaf names."""
+    return [k for k, v in state.params.items() if v.requires_grad]
 
 
-def load_state_dict(state: TrainState, saved: Dict) -> TrainState:
-    """Copy a checkpoint's params and optimizer state into `state`."""
+def state_dict(state: TrainState, mesh=None) -> Dict:
+    """What a checkpoint holds: step, params and the optimizer's state,
+    unsharded: on a mesh, the leaves in ``state.sharded`` and their
+    momentum are gathered over 'model' (a collective: every rank calls it;
+    rank 0 writes)."""
+    params = {k: v.detach() for k, v in state.params.items()}
+    opt = state.optimizer.state_dict()
+    if state.sharded:
+        params = par.unshard_params(params, mesh, state.sharded)
+        names = _momentum_names(state)
+        moms = {names[i]: s["momentum_buffer"] for i, s in opt["state"].items()
+                if s.get("momentum_buffer") is not None}
+        full = par.unshard_params(moms, mesh, state.sharded)
+        opt = {"state": {i: {**s, "momentum_buffer": full[names[i]]}
+                         if names[i] in full else s for i, s in opt["state"].items()},
+               "param_groups": opt["param_groups"]}
+    return {"step": state.step, "params": params, "optimizer": opt}
+
+
+def load_state_dict(state: TrainState, saved: Dict, mesh=None) -> TrainState:
+    """Copy a checkpoint's (unsharded) params and optimizer state into
+    `state`, taking this rank's model rows of the leaves in
+    ``state.sharded``: a checkpoint of any mesh resumes on any other."""
+    def mine(name, v):
+        return par.shard_params({name: v}, mesh)[name] if name in state.sharded else v
+
     with torch.no_grad():
         for k, v in state.params.items():
-            v.copy_(saved["params"][k])
-    state.optimizer.load_state_dict(saved["optimizer"])
+            v.copy_(mine(k, saved["params"][k]))
+    opt = saved["optimizer"]
+    if state.sharded:
+        names = _momentum_names(state)
+        opt = {"state": {i: {**s, "momentum_buffer": mine(names[i], s["momentum_buffer"])}
+                         if s.get("momentum_buffer") is not None else s
+                         for i, s in opt["state"].items()},
+               "param_groups": opt["param_groups"]}
+    state.optimizer.load_state_dict(opt)
     return state._replace(step=int(saved["step"]))
 
 
 def box_branch_loss(params, cfg: ModelConfig, images, rois, labels, bbox_targets,
                     bbox_inside_weights, bbox_outside_weights, valid,
                     mask_targets=None, mask_valid=None, roi_align=None,
-                    kp_labels=None, kp_valid=None):
+                    kp_labels=None, kp_valid=None, mesh=None):
     """Per-image Fast R-CNN loss of a batch, plus the mask loss when
     mask_targets/mask_valid are given (upstream Detectron mask training) and
     the keypoint loss when cfg has a keypoint config and kp_labels/kp_valid
@@ -84,18 +116,20 @@ def box_branch_loss(params, cfg: ModelConfig, images, rois, labels, bbox_targets
     mask_targets (B, Rm, M, M) {0, 1} and mask_valid (B, Rm) over the first
     Rm rois of each image, kp_labels (B, Rk, P) heatmap bins y*S + x and
     kp_valid (B, Rk, P) over the first Rk (the sampler puts foreground rows
-    first). Returns (total (B,), metrics {name: (B,)}).
+    first). `mesh` runs fc6/fc7 column-parallel where params hold its model
+    rows (``models.heads.mlp_box_head``). Returns (total (B,), metrics
+    {name: (B,)}).
     """
     feats = backbone_features(params, cfg, images)
     return roi_heads_loss(params, cfg, feats, rois, labels, bbox_targets,
                           bbox_inside_weights, bbox_outside_weights, valid,
-                          mask_targets, mask_valid, roi_align, kp_labels, kp_valid)
+                          mask_targets, mask_valid, roi_align, kp_labels, kp_valid, mesh)
 
 
 def roi_heads_loss(params, cfg: ModelConfig, feats, rois, labels, bbox_targets,
                    bbox_inside_weights, bbox_outside_weights, valid,
                    mask_targets=None, mask_valid=None, roi_align=None,
-                   kp_labels=None, kp_valid=None):
+                   kp_labels=None, kp_valid=None, mesh=None):
     """``box_branch_loss`` on backbone features already computed (the FPN
     pyramid or the C4 map): RoIAlign and the box head over every roi,
     RoIAlign and the keypoint head over the first Rk rois, RoIAlign 14x14
@@ -108,7 +142,7 @@ def roi_heads_loss(params, cfg: ModelConfig, feats, rois, labels, bbox_targets,
     levels = _roi_levels(cfg, rois) if cfg.use_fpn else None
     bsz, r = rois.shape[:2]
     roi_feats = roi_features(cfg, feats, rois, cfg.roi_size, roi_align, levels)
-    box_feats = box_head(params, cfg, roi_feats.reshape(bsz * r, *roi_feats.shape[2:]))
+    box_feats = box_head(params, cfg, roi_feats.reshape(bsz * r, *roi_feats.shape[2:]), mesh)
     del roi_feats
     cls_logits, bbox_pred = heads_mod.box_predictors(params, box_feats, output_prob=False,
                                                      dtype=dtype)
@@ -174,7 +208,7 @@ def expand_bbox_targets_device(compact, num_classes: int):
 def make_train_step(cfg: ModelConfig, solver_cfg: SolverConfig = SolverConfig(),
                     device_input: bool = False, blob_hw: Tuple[int, int] = (1344, 1344),
                     train_mask: bool = False, roi_align_impl: str = "gather",
-                    bwd_precision: str = "bf16"):
+                    bwd_precision: str = "bf16", mesh=None):
     """Returns (init_state, make_step) for batched Fast R-CNN training.
 
     init_state(params) -> (TrainState, optimizer): params are port-layout
@@ -199,6 +233,11 @@ def make_train_step(cfg: ModelConfig, solver_cfg: SolverConfig = SolverConfig(),
 
     roi_align_impl takes JAX's names (``ops.roi_align_fused.ROI_ALIGN_IMPLS``);
     those whose gradient is exact all run the port's one RoIAlign.
+
+    On a `mesh` (``parallel.mesh``), init_state keeps this rank's model rows
+    of fc6/fc7 (``shard_params``), each rank's batch is its data rows of
+    the global batch, and the update averages the gradients over the data
+    ranks (``update``): the step is the global batch's step.
     """
     check_step_config(cfg, train_mask, roi_align_impl, bwd_precision)
 
@@ -218,12 +257,12 @@ def make_train_step(cfg: ModelConfig, solver_cfg: SolverConfig = SolverConfig(),
                 inside, outside = batch["bbox_inside_weights"], batch["bbox_outside_weights"]
             total, metrics = box_branch_loss(
                 state.params, cfg, image, batch["rois"], batch["labels"], targets, inside,
-                outside, batch["valid"], **extra)
-            return update(state, optimizer, total, metrics, solver_cfg)
+                outside, batch["valid"], **extra, mesh=mesh)
+            return update(state, optimizer, total, metrics, solver_cfg, mesh)
 
         return step_fn
 
-    return make_init_state(solver_cfg), make_step
+    return make_init_state(solver_cfg, mesh), make_step
 
 
 def check_step_config(cfg: ModelConfig, train_mask: bool, roi_align_impl: str,
@@ -243,26 +282,41 @@ def check_step_config(cfg: ModelConfig, train_mask: bool, roi_align_impl: str,
                              "the C4 presets train with 'gather'")
 
 
-def make_init_state(solver_cfg: SolverConfig):
-    """init_state(params) -> (TrainState, optimizer) of a training step."""
+def make_init_state(solver_cfg: SolverConfig, mesh=None):
+    """init_state(params) -> (TrainState, optimizer) of a training step; on
+    a mesh, of this rank's shard of the params."""
     def init_state(params: Dict[str, torch.Tensor]):
+        sharded = ()
+        if mesh is not None:
+            sharded = tuple(k for k, spec in par.param_sharding(params, mesh).items() if spec)
+            params = par.shard_params(params, mesh)
         mask = solver_mod.frozen_mask(params)
         leaves = {k: v.detach().clone().requires_grad_(mask[k]) for k, v in params.items()}
         optimizer = solver_mod.make_optimizer(solver_cfg, leaves, mask)
-        return TrainState(0, leaves, optimizer), optimizer
+        return TrainState(0, leaves, optimizer, sharded), optimizer
 
     return init_state
 
 
 def update(state: TrainState, optimizer: torch.optim.SGD, total, metrics,
-           solver_cfg: SolverConfig):
+           solver_cfg: SolverConfig, mesh=None):
     """The step's loss is the mean of the per-image losses `total` (B,):
     its backward and one SGD update; returns (next state, batch-mean
-    metrics with 'loss' and 'lr')."""
+    metrics with 'loss' and 'lr'). On a mesh, `total` holds this rank's
+    rows: the gradients and the metrics are averaged over the data ranks
+    (flat buckets), and the clip sees the global gradient."""
     loss = total.mean()
     loss.backward()
-    solver_mod.apply_update(optimizer, state.step, solver_cfg)
+    sharded = ()
+    if mesh is not None:
+        par.average_gradients(state.params, mesh, state.sharded)
+        sharded = [state.params[k] for k in state.sharded]
+    solver_mod.apply_update(optimizer, state.step, solver_cfg, mesh, sharded)
     metrics = {k: v.detach().mean() for k, v in metrics.items()}
     metrics["loss"] = loss.detach()
+    if mesh is not None:
+        values = torch.stack(list(metrics.values()))
+        par.all_reduce_mean([values], mesh, "data")
+        metrics = dict(zip(metrics, values.unbind()))
     metrics["lr"] = solver_mod.get_lr_at_iter(state.step, solver_cfg)
-    return TrainState(state.step + 1, state.params, optimizer), metrics
+    return state._replace(step=state.step + 1), metrics

@@ -27,6 +27,7 @@ from detectorch_tpu_torch.data.transforms import load_image_rgb
 from detectorch_tpu_torch.eval import engine as E
 from detectorch_tpu_torch.eval import rle as rle_mod
 from detectorch_tpu_torch.models.detector import init_params
+from detectorch_tpu_torch.parallel.mesh import make_mesh
 from tests.torch_configs import both_configs
 
 H, W = 64, 96
@@ -192,8 +193,11 @@ def test_engines_reuse(tiny, faster_params):
     # another batch size gets its own engine
     _evaluate(cfg, TCFG, faster_params, ds, limit=3, batch_size=3, engines=engines)
     assert engines[("batched", 3)].batch_size == 3
-    with pytest.raises(NotImplementedError):
-        E.BatchedInferenceEngine(cfg, TCFG, faster_params, 2, mesh=object(), device="cpu")
+    # a mesh engine runs a data rank's rows of the global batch (here the
+    # 1x1 mesh of one process: all of them); tests/test_torch_parallel.py
+    # holds it at world 2 to world 1
+    assert E.BatchedInferenceEngine(cfg, TCFG, faster_params, 2, mesh=make_mesh(device="cpu"),
+                                    device="cpu").batch_size == 2
     # the keypoint preset, once refused, runs in both engines (a small head:
     # tests/test_torch_kp_engine.py holds them to JAX)
     kcfg = PRESETS["e2e_keypoint_rcnn_R-50-FPN_1x"].replace(

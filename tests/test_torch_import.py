@@ -49,6 +49,9 @@ def test_port_imports_without_jax():
     assert "detectorch_tpu_torch.tools.make_proposals" in mods
     assert "detectorch_tpu_torch.ops.keypoints" in mods
     assert "detectorch_tpu_torch.data.synth" in mods
+    for m in ("parallel.mesh", "parallel.launch", "parallel.dryrun", "tools.dryrun_multichip",
+              "tools.multicard_check"):
+        assert f"detectorch_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n" + LEAK_CHECK)
     proc = _python(["-c", code], cwd=REPO)
@@ -310,13 +313,34 @@ assert os.path.exists(os.path.join(tmp, "run", "ckpt-1"))
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_parallel_paths_run_without_jax():
+    # two ranks on gloo: the mesh, its collectives, the column-parallel
+    # product and the eval results' gather in each rank's own interpreter
+    # (``torch_dist_case.leak_check_rank`` lists what leaked there), the
+    # multi-rank trainer, eval and dry run imported here
+    code = """
+import sys
+import detectorch_tpu_torch.eval.engine, detectorch_tpu_torch.tools.train_fast
+import detectorch_tpu_torch.tools.dryrun_multichip
+from detectorch_tpu_torch.parallel.launch import run_ranks
+from tests.torch_dist_case import leak_check_rank
+ranks = run_ranks(leak_check_rank, 2)
+assert ranks == [[], []], ranks
+""" + LEAK_CHECK
+    proc = _python(["-c", code], cwd=REPO, env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_no_jax_import_in_port_sources():
     # neither jax nor any module of the JAX package, at any indentation
     pattern = re.compile(r"^\s*(import|from) (jax|detectorch_tpu)(\.|\s|$)", re.M)
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests",
+                                                               "torch_dist_case.py")]
     for root, _, files in os.walk(os.path.join(REPO, "detectorch_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    for rel in ("train/e2e.py", "tools/make_proposals.py", "tools/train_fast.py"):
+    for rel in ("train/e2e.py", "tools/make_proposals.py", "tools/train_fast.py",
+                "parallel/mesh.py", "parallel/launch.py", "parallel/dryrun.py",
+                "tools/dryrun_multichip.py", "tools/multicard_check.py"):
         assert os.path.join(REPO, "detectorch_tpu_torch", rel) in paths, rel
     offenders = [p for p in paths if pattern.search(open(p).read())]
     assert not offenders
