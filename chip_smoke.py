@@ -134,13 +134,32 @@ Phases — each passes or the script exits non-zero:
      scaling figure), and in fp32 the results equal world 1's;
  25. dryrun_multichip(2): data 1 x model 2 on the card, the e2e Mask R-CNN
      step at JAX's reduced counts and sharded inference at 416x672 held to
-     one process.
+     one process;
+ 26. the demo and the host utilities: the native RLE (built in phase 2 with
+     the host C++ compiler) against its numpy plain version on phase 9's
+     data: the paste encode of 800 masks of one batch of each orientation
+     through segm_results (strings equal byte for byte, both timed) and
+     COCOeval's segm IoU over phase 9's results (matrices equal), beside
+     phase 9's finalize seconds; then tools/demo.main in-process on a
+     480x640 PNG of the port's data/synth, for e2e_keypoint_rcnn_R-50-FPN_1x
+     and e2e_mask_rcnn_R-50-FPN_2x, from a Detectron pkl of init_params(seed
+     0) with confident classes and +-3 mask / +3 keypoint biases, --thresh
+     0.5: 2 forward and 0 backward launches; then InferenceEngine.run_image
+     on the same image (a warm request's ms): the demo's file equal pixel
+     for pixel to vis_one_image of its result, with
+     a mask or a skeleton drawn; utils/profiling.trace around a demo request
+     (the forward kernel's events in the trace) and device_timer of phase
+     4's request, serial and pipelined; utils/debug.checked around the
+     flagship request (passes), with one NaN pixel (raises ValueError), and
+     assert_finite_tree on its outputs.
 
 The line before the last is a JSON summary of the kernels (their times and
 bounds are those of the random bf16 7x7 call; "calls" lists every timed
 call, FPN, C4 and the keypoint calls; "launches" counts phase 10's three steps,
-"launches_by_path" each path's timed run, per rank for phases 23-25), with
-phases 22-24's times under "parallel"; the line before it nvidia-smi's
+"launches_by_path" each path's timed run, per rank for phases 23-25, and
+the demo's counted run for "demo" and "demo_keypoint"), with phases 22-24's
+times under "parallel", the native RLE's under "rle_native" and the demo's
+and device_timer's under "demo"; the line before it nvidia-smi's
 name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
@@ -148,6 +167,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -386,18 +406,30 @@ def phase_device():
 
 
 def phase_build():
+    """Both kernels (one nvcc each) and the native RLE (the host C++
+    compiler), started together; returns the RLE library's build seconds."""
+    from detectorch_tpu_torch.eval import rle_native
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
+
+    def build_rle():
+        t0 = time.perf_counter()
+        rle_native.library.load()
+        return rle_native.library.path, time.perf_counter() - t0
 
     t0 = time.perf_counter()
     kernels = (roi_align_fwd, roi_align_bwd)
-    with ThreadPoolExecutor(len(kernels)) as pool:
+    with ThreadPoolExecutor(len(kernels) + 1) as pool:
+        rle_build = pool.submit(build_rle)
         paths = list(pool.map(lambda k: k.build(), kernels))
+        rle_path, rle_s = rle_build.result()
     log(f"[2 build] {', '.join(os.path.relpath(p, REPO) for p in paths)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s; {os.path.relpath(rle_path, REPO)} "
+        f"({rle_native.compiler()} {' '.join(rle_native.CXX_FLAGS)}) in {rle_s:.2f} s")
     for kernel in kernels:
         for line in kernel.build_log.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"          ptxas: {line.strip()}")
+    return rle_s
 
 
 def phase_kernel(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=256,
@@ -1236,10 +1268,31 @@ def compare_results(a, b, tie=0.0):
     return diff, max_box, moved
 
 
+def paste_inputs(cfg, test_cfg, params, pictures, batch, device):
+    """One batch of `pictures` (RGB images of one size) through the batched
+    engine: each image's valid detections' masks and boxes, and its size, as
+    finalize_batch hands them to the paste."""
+    from detectorch_tpu_torch.eval.engine import BatchedInferenceEngine
+
+    engine = BatchedInferenceEngine(cfg, test_cfg, params, batch, device=device)
+    samples = [engine.preprocess(im) for im in pictures]
+    pk, masks, _ = engine.submit_batch(samples)
+    pk, masks = pk.cpu().numpy(), masks.cpu().float().numpy()
+    out = []
+    for i, (_, oh, ow) in enumerate(samples):
+        valid = pk[i, :, 6] > 0.5
+        out.append((masks[i][valid], pk[i, :, :4][valid], int(oh), int(ow)))
+    return out
+
+
 def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
-               parity_images=PARITY_IMAGES, card="", tag="9 eval", weights=None, tie=0.0):
+               parity_images=PARITY_IMAGES, card="", tag="9 eval", weights=None, tie=0.0,
+               keep=None):
     """COCO evaluation through the port's entry points; returns the forward
-    kernel's launch count in the timed run and its img/s."""
+    kernel's launch count in the timed run and its img/s. A `keep` dict
+    receives what phase 26 reuses: the dataset, the segm results, the
+    finalize seconds, and the paste inputs of one batch of each orientation
+    (its first half: 4 images at 480x640 and 4 at 640x480)."""
     import collections
     import functools
     import math
@@ -1292,6 +1345,14 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
         launches = roi_align_fwd.launches
         wall = time.perf_counter() - t0
         engines.clear()
+        if keep is not None:
+            keep.update(dataset=ds, segm=info["segm"],
+                        finalize_s=info["phase_seconds"]["finalize"], paste=[])
+            for h, w, _ in images:
+                pictures = [pics[os.path.basename(e.file_path)] for e in roidb
+                            if (e.height, e.width) == (h, w)][:batch]
+                keep["paste"] += paste_inputs(cfg, test_cfg, params, pictures, batch,
+                                              device)[:batch // 2]
         n_batches = sum(math.ceil(c / batch) for _, _, c in images)
         per_image = collections.Counter(r["image_id"] for r in info["bbox"])
         split = " ".join(f"{k}={v:.3f}s" for k, v in info["phase_seconds"].items())
@@ -2750,6 +2811,313 @@ def phase_dryrun(device_type="cuda", **sizes):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the demo, the native RLE, profiling and debug
+# ---------------------------------------------------------------------------
+
+# phase 9's `finalize` seconds on an H100 at 700 W before the native RLE,
+# with the numpy paste encode (PERF.md §6)
+FINALIZE_BEFORE = "0.58-1.24 s"
+DEMO_THRESH = 0.5
+KP_THRESH = 2.0  # utils/vis's kp_thresh: a keypoint logit above it is drawn
+# the classes the demo's weights make confident: horse (mask bias +3, so its
+# masks are drawn) above person; Keypoint R-CNN has person only
+DEMO_CLASSES = {PRESET: {18: 7.0, 1: 6.0}, KP_PRESET: {1: 7.0}}
+
+
+@contextlib.contextmanager
+def numpy_rle():
+    """The port's eval/rle with its numpy plain versions in place of the
+    native library, for every caller that reaches them through the module's
+    attributes (segm_results, COCOeval)."""
+    from detectorch_tpu_torch.eval import rle
+
+    names = ("counts_to_string", "string_to_counts", "encode_pasted", "area", "rle_iou")
+    saved = {n: getattr(rle, n) for n in names}
+    try:
+        for n in names:
+            setattr(rle, n, getattr(rle, f"{n}_np"))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(rle, n, fn)
+
+
+def phase_rle_native(kept, build_s, tag="26 rle"):
+    """The native RLE against its numpy plain version on phase 9's data: the
+    paste encode of 800 masks, COCOeval's segm IoU, and rle_iou over every
+    detection-gt pair of each image. Returns its times."""
+    import collections
+
+    import numpy as np
+
+    from detectorch_tpu_torch.eval import rle
+    from detectorch_tpu_torch.eval.coco_eval import COCOeval
+    from detectorch_tpu_torch.eval.mask_paste import segm_results
+
+    m = next(masks.shape[-1] for masks, _, _, _ in kept["paste"])
+    n_masks = sum(len(masks) for masks, _, _, _ in kept["paste"])
+    sizes = sorted({(h, w) for _, _, h, w in kept["paste"]})
+
+    def paste():
+        t0 = time.perf_counter()
+        out = [segm_results(masks, boxes, h, w, m) for masks, boxes, h, w in kept["paste"]]
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # in turns: library, numpy, numpy, library
+    native, ms_native = paste()
+    with numpy_rle():
+        plain, ms_plain = paste()
+        _, ms_plain2 = paste()
+    _, ms_native2 = paste()
+    check(native == plain, "the native paste encode differs from the numpy version")
+    check(sum(len(r) for r in native) == n_masks, "a mask was not encoded")
+
+    def ious():
+        coco = kept["dataset"].coco
+        ev = COCOeval(coco, coco.load_res(kept["segm"]), "segm")
+        t0 = time.perf_counter()
+        ev.evaluate()
+        return ev.ious, time.perf_counter() - t0
+
+    # in turns, as the paste
+    iou_native, s_native = ious()
+    with numpy_rle():
+        iou_plain, s_plain = ious()
+        _, s_plain2 = ious()
+    _, s_native2 = ious()
+    pairs = sum(v.size for v in iou_native.values())
+    check(iou_native.keys() == iou_plain.keys()
+          and all(np.array_equal(iou_native[k], iou_plain[k]) for k in iou_native),
+          "COCOeval's segm IoU differs with and without the native library")
+
+    # COCOeval pairs a detection only with gts of its class: with random
+    # weights that is few pairs, so time rle_iou over every pair of an image
+    coco = kept["dataset"].coco
+    per_image = collections.defaultdict(list)
+    for r in kept["segm"]:
+        per_image[r["image_id"]].append(r["segmentation"])
+    cases = [(dts, [coco.ann_to_rle(a) for a in coco.load_anns_for_image(i)],
+              [a.get("iscrowd", 0) for a in coco.load_anns_for_image(i)])
+             for i, dts in sorted(per_image.items())]
+
+    def all_pairs():
+        t0 = time.perf_counter()
+        out = [rle.rle_iou(*case) for case in cases]
+        return out, (time.perf_counter() - t0) * 1e3
+
+    dense, ms_dense = all_pairs()
+    with numpy_rle():
+        dense_plain, ms_dense_plain = all_pairs()
+    check(all(np.array_equal(a, b) for a, b in zip(dense, dense_plain)),
+          "rle_iou differs with and without the native library")
+    log(f"[{tag}] native RLE built in {build_s:.2f} s (phase 2); paste + encode of {n_masks} "
+        f"masks ({len(kept['paste'])} images, {' and '.join(f'{h}x{w}' for h, w in sizes)}; "
+        f"phase 9's weights): library {ms_native:.1f} / {ms_native2:.1f} ms, numpy "
+        f"{ms_plain:.1f} / {ms_plain2:.1f} ms, strings equal byte for byte; COCOeval segm "
+        f"evaluate() over {len(kept['segm'])} results ({pairs} IoU pairs): library "
+        f"{s_native:.3f} / {s_native2:.3f} s, numpy {s_plain:.3f} / {s_plain2:.3f} s, matrices "
+        f"equal; rle_iou over every dt x gt "
+        f"pair of each image ({sum(a.size for a in dense)} pairs): library {ms_dense:.1f} ms, "
+        f"numpy {ms_dense_plain:.1f} ms, equal; phase 9's finalize "
+        f"{kept['finalize_s']:.3f} s with the library (numpy, earlier runs: {FINALIZE_BEFORE})")
+    return {"build_s": build_s, "masks": n_masks, "paste_encode_ms": [ms_native, ms_native2],
+            "paste_encode_numpy_ms": [ms_plain, ms_plain2],
+            "segm_evaluate_s": [s_native, s_native2], "segm_evaluate_numpy_s": [s_plain, s_plain2],
+            "rle_iou_all_pairs_ms": ms_dense,
+            "rle_iou_all_pairs_numpy_ms": ms_dense_plain,
+            "phase9_finalize_s": kept["finalize_s"]}
+
+
+def demo_pkl(cfg, path):
+    """A Detectron pkl of init_params(seed 0) with confident classes
+    (DEMO_CLASSES' cls_score biases: random scores sit near 1/81, under the
+    demo's threshold), a +-3 mask_fcn_logits_b bias per class (random mask
+    logits sit on the 0.5 threshold) and a +3 kps_score_lowres_b (keypoint
+    logits above vis's kp_thresh), written as phase 9 writes its pkl."""
+    from detectorch_tpu_torch.checkpoint import caffe2_import as c2
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax
+    from detectorch_tpu_torch.models.detector import init_params
+
+    params = init_params(cfg, seed=0)
+    for c, b in DEMO_CLASSES[cfg.name].items():
+        params["cls_score_b"][c] = b
+    if cfg.use_mask:
+        params["mask_fcn_logits_b"][0::2], params["mask_fcn_logits_b"][1::2] = 3.0, -3.0
+    if cfg.keypoint is not None:
+        params["kps_score_lowres_b"][:] = 3.0
+    c2.save_caffe2_pkl(params_from_jax(params), cfg, path)
+
+
+def demo_path(device, root, preset, tag):
+    """tools/demo.main on a 480x640 PNG of the port's data/synth (its
+    launches counted), then InferenceEngine.run_image on the same image and
+    weights, warm: 2 forward launches and no backward launch a request (plus
+    2 for each NMS-prefilter rerun), the file equal pixel for pixel to
+    vis_one_image of run_image's result, something drawn. Returns the
+    launches, the warm request's ms, and the engine and image for the
+    profiling and debug checks."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from detectorch_tpu_torch.checkpoint import caffe2_import as c2
+    from detectorch_tpu_torch.config import PRESETS, TestConfig
+    from detectorch_tpu_torch.data.synth import build_synth_coco
+    from detectorch_tpu_torch.data.transforms import load_image_rgb
+    from detectorch_tpu_torch.eval import rle
+    from detectorch_tpu_torch.eval.engine import InferenceEngine
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
+    from detectorch_tpu_torch.tools import demo
+    from detectorch_tpu_torch.utils.vis import vis_one_image
+
+    cfg = PRESETS[preset]
+    keypoints = cfg.keypoint is not None
+    t0 = time.perf_counter()
+    ann, imdir = build_synth_coco(os.path.join(root, preset), n_images=1, height=480, width=640,
+                                  seed=3, with_keypoints=keypoints)
+    with open(ann) as f:
+        image = os.path.join(imdir, json.load(f)["images"][0]["file_name"])
+    pkl = os.path.join(root, f"{preset}.pkl")
+    demo_pkl(cfg, pkl)
+    out = os.path.join(root, f"{preset}.png")
+    argv = ["--image", image, "--preset", preset, "--weights", pkl, "--out", out,
+            "--thresh", str(DEMO_THRESH), "--device", str(device)]
+    log(f"[{tag}] {preset}: data/synth image and Detectron pkl in "
+        f"{time.perf_counter() - t0:.2f} s; python -m detectorch_tpu_torch.tools.demo "
+        + " ".join(os.path.relpath(a, root) if a.startswith(root) else a for a in argv))
+    roi_align_fwd.launches = roi_align_bwd.launches = 0
+    t0 = time.perf_counter()
+    res_cli = demo.main(argv)
+    cli_s = time.perf_counter() - t0
+    launches = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": roi_align_bwd.launches}
+
+    engine = InferenceEngine(cfg, TestConfig(), c2.fold_bn(c2.import_params(
+        c2.load_caffe2_pkl(pkl), cfg)), device)
+    im = load_image_rgb(image)
+    roi_align_fwd.launches = 0
+    t0 = time.perf_counter()
+    res = engine.run_image(im)  # ends in host results: nothing left on the card
+    request_ms = (time.perf_counter() - t0) * 1e3
+    engine_launches = roi_align_fwd.launches
+    reruns = max(launches["roi_align_fwd"] - 2, 0) // 2
+    drawn = vis_one_image(im, res["boxes"], res["scores"], res["classes"], res.get("rles"),
+                          res.get("keypoints"), thresh=DEMO_THRESH)
+    written = cv2.imread(out)
+    shown = res["scores"] >= DEMO_THRESH
+    masks_drawn = sum(rle.area(res["rles"][i]) > 0 for i in np.flatnonzero(shown)) \
+        if "rles" in res else 0
+    kps_drawn = int((res["keypoints"][shown][..., 2] > KP_THRESH).sum()) if keypoints else 0
+    log(f"[{tag}] demo.main: {cli_s:.2f} s (pkl load, params upload, the first request, "
+        f"paste, render); {len(res_cli['scores'])} detections, "
+        f"{int(shown.sum())} at >= {DEMO_THRESH} (classes "
+        f"{sorted(set(res['classes'][shown].tolist()))}), {masks_drawn} masks and "
+        f"{kps_drawn} keypoints above kp_thresh drawn; launches {launches} ({reruns} NMS "
+        f"prefilter reruns); warm run_image {request_ms:.1f} ms, {engine_launches} forward "
+        f"launches; file {written.shape[1]}x{written.shape[0]} equal "
+        f"to vis_one_image of run_image's result: {np.array_equal(written[:, :, ::-1], drawn)}")
+    check(written is not None and written.shape == im.shape,
+          f"the demo's output does not decode to {im.shape}")
+    check(np.array_equal(written[:, :, ::-1], drawn),
+          "the demo's output differs from vis_one_image of run_image's result")
+    if device.type == "cuda":
+        check(launches["roi_align_bwd"] == 0 and launches["roi_align_fwd"] >= 2
+              and launches["roi_align_fwd"] % 2 == 0
+              and engine_launches == launches["roi_align_fwd"],
+              f"demo launches {launches}, run_image {engine_launches}: expected 2 forward "
+              "a request")
+    check(shown.any() and not (drawn == im).all(), "the demo drew nothing")
+    check(masks_drawn > 0 if cfg.use_mask else kps_drawn > 0,
+          "no mask or keypoint above its threshold was drawn")
+    return launches, request_ms, engine, im
+
+
+def trace_kernel_events(logdir):
+    """Kernel events of the trace files under `logdir` whose name holds the
+    forward kernel's symbol."""
+    names = []
+    for f in os.listdir(logdir):
+        with open(os.path.join(logdir, f)) as fh:
+            events = json.load(fh)["traceEvents"]
+        names += [e["name"] for e in events
+                  if e.get("cat") == "kernel" and "roi_align_fwd_kernel" in e.get("name", "")]
+    return names
+
+
+def phase_demo(device, smi, rle_build_s, kept, infer, tag="26 demo", batch=BATCH,
+               height=HEIGHT, width=WIDTH):
+    """Phase 26: the native RLE on phase 9's data, the demo on both presets,
+    profiling (device_timer of phase 4's request, a trace of a demo request)
+    and debug (checked around a flagship request, with a NaN pixel;
+    assert_finite_tree). Returns the demo launches and the times."""
+    import tempfile
+
+    import torch
+
+    from detectorch_tpu_torch.config import PRESETS, TestConfig
+    from detectorch_tpu_torch.models.detector import make_inference_fn
+    from detectorch_tpu_torch.utils.debug import assert_finite_tree, checked
+    from detectorch_tpu_torch.utils.profiling import device_timer, trace
+
+    rle_times = phase_rle_native(kept, rle_build_s)
+    # the demo's two runs and run_image give the same bits: no algorithm
+    # picked by timing, none that accumulates with atomics
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            launches, ms = {}, {}
+            launches["demo_keypoint"], ms["demo_keypoint"], _, _ = demo_path(
+                device, root, KP_PRESET, tag + " kp")
+            launches["demo"], ms["demo"], engine, im = demo_path(device, root, PRESET, tag)
+
+            logdir = os.path.join(root, "trace")
+            with trace(logdir):
+                engine.run_image(im)
+            kernels = trace_kernel_events(logdir)
+            log(f"[{tag}] utils/profiling.trace around one demo request: "
+                f"{len(os.listdir(logdir))} trace file, {len(kernels)} kernel events of "
+                f"roi_align_fwd_kernel ({kernels[0] if kernels else 'none'})")
+            if device.type == "cuda":
+                check(len(kernels) >= 2, "the trace holds no forward kernel event")
+
+            # debug: checked around the flagship request on the demo image's blob
+            fwd = make_inference_fn(PRESETS[PRESET], TestConfig())
+            args = engine._upload([engine.preprocess(im)[0]])
+            out = checked(fwd)(engine.params, *args)
+            assert_finite_tree(out, "out")
+            bad = args[0].clone()
+            bad[0, 100, 200, 1] = float("nan")
+            try:
+                checked(fwd)(engine.params, bad, *args[1:])
+                raised = None
+            except ValueError as err:
+                raised = str(err)
+            log(f"[{tag}] utils/debug: checked(make_inference_fn) on the demo image's "
+                f"{tuple(args[0].shape)} blob passes (as JAX's checked on the CPU test); "
+                f"assert_finite_tree of its outputs passes; one NaN pixel: {raised!r}")
+            check(raised is not None and raised.startswith("nan generated by"),
+                  "checked did not raise on a NaN pixel")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # profiling: device_timer of phase 4's request
+    params, rate = infer
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    batch_args = _batch(gen, batch, height, width, device)
+    fwd4 = make_inference_fn(PRESETS[PRESET], TestConfig())
+    serial = device_timer(fwd4, params, *batch_args, iters=3, pipeline=False) * 1e3
+    pipelined = device_timer(fwd4, params, *batch_args, iters=3, pipeline=True) * 1e3
+    log(f"[{tag}] utils/profiling.device_timer of phase 4's request (batch {batch}, "
+        f"{height}x{width}, bf16): serial {serial:.1f} ms ({batch * 1e3 / serial:.2f} img/s), "
+        f"pipelined {pipelined:.1f} ms ({batch * 1e3 / pipelined:.2f} img/s); phase 4's timed "
+        f"requests {rate:.2f} img/s ({batch * 1e3 / rate:.1f} ms) on {smi}")
+    return launches, {**ms, "device_timer_serial_ms": serial,
+                      "device_timer_pipelined_ms": pipelined,
+                      "phase4_ms": batch * 1e3 / rate}, rle_times
+
+
 def per_kernel(launches, kernel):
     """One kernel's counts of a nested {path: counts} tree."""
     if isinstance(launches, dict) and kernel in launches:
@@ -2774,15 +3142,15 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     name, smi = phase_device()
-    phase_build()
+    rle_build_s = phase_build()
     summary = phase_kernel(device)
-    infer_launches, _, params = phase_main_path(device, card=smi)
-    phase_fp32_parity(device, params)
-    del params
+    infer_launches, infer_rate, infer_params = phase_main_path(device, card=smi)
+    phase_fp32_parity(device, infer_params)
     bwd_summary = phase_bwd_kernel(device)
     train_launches, _ = phase_train(device, card=smi)
     phase_fp32_grads(device)
-    eval_launches, eval_rate = phase_eval(device, card=smi)
+    kept = {}
+    eval_launches, eval_rate = phase_eval(device, card=smi, keep=kept)
     e2e_launches, e2e_rate = phase_e2e_train(device, card=smi)
     phase_e2e_fp32_grads(device)
     c4 = phase_c4(device, smi)
@@ -2792,6 +3160,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     world2 = phase_parallel(device, card=smi, eval_rate=eval_rate)
     dryrun = phase_dryrun()
+    torch.cuda.empty_cache()
+    demo_launches, demo_ms, rle_times = phase_demo(device, smi, rle_build_s, kept,
+                                                   (infer_params, infer_rate))
     parallel_launches = {
         "world1_nccl_e2e_training": world1["launches"],
         "world2_e2e_training": [r["step_launches"] for r in world2],
@@ -2818,7 +3189,8 @@ def main() -> int:
                              "e2e_training": e2e_launches["roi_align_fwd"],
                              **{k: v["roi_align_fwd"] for k, v in c4["launches"].items()},
                              **{k: v["roi_align_fwd"] for k, v in kp["launches"].items()},
-                             **per_kernel(parallel_launches, "roi_align_fwd")},
+                             **per_kernel(parallel_launches, "roi_align_fwd"),
+                             **per_kernel(demo_launches, "roi_align_fwd")},
         "max_abs_err": summary["max_abs_err"],
         "c4_max_abs_err": c4["kernels"]["fwd_err"],
         "keypoint_max_abs_err": max(r["max_abs_err"] for r in kp["calls"]["fwd"]),
@@ -2861,7 +3233,8 @@ def main() -> int:
         "phase9_eval_images_per_sec": eval_rate,
     }
     log(smi)
-    log(json.dumps({"kernels": kernels, "parallel": parallel}))
+    log(json.dumps({"kernels": kernels, "parallel": parallel, "rle_native": rle_times,
+                    "demo": demo_ms}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))
     return 0

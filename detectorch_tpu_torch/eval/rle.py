@@ -14,9 +14,13 @@ here, so this module implements the same public format natively:
   * run-walk intersection areas and IoU with the crowd convention
     (`rle_iou`), no full-mask decode.
 
-These run on the host (RLE is inherently sequential/byte-oriented), in
-numpy. The port's copy of ``detectorch_tpu/eval/rle.py``: the JAX package's
-optional C++ extension is left out, so the numpy path is the only one.
+These run on the host (RLE is inherently sequential/byte-oriented). The
+port's copy of ``detectorch_tpu/eval/rle.py``. As there, the hot loops — the
+paste encode, the string codec, the run-walk IoU — run in C++: the port's own
+plain-C library (``eval/rle_native``, ``csrc/rle_native.cpp``), built at
+first use; so does ``area``. A failed build raises: there is no fallback. The
+numpy bodies stay beside them as the plain versions (``*_np``), which the
+tests and ``chip_smoke.py`` hold the library to, byte for byte.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Union
 
 import numpy as np
+
+from detectorch_tpu_torch.eval.rle_native import library as _native
 
 RLE = Dict[str, object]  # {'size': [h, w], 'counts': str | list[int]}
 
@@ -64,6 +70,11 @@ def decode_counts(counts: Sequence[int], h: int, w: int) -> np.ndarray:
 def counts_to_string(counts: Sequence[int]) -> str:
     """Signed 5-bit varint encoding with 2nd-order differences (maskApi
     rleToString semantics)."""
+    return _native.counts_to_string(counts)
+
+
+def counts_to_string_np(counts: Sequence[int]) -> str:
+    """counts_to_string's plain version."""
     s = []
     cnts = list(counts)
     for i, x in enumerate(cnts):
@@ -81,6 +92,12 @@ def counts_to_string(counts: Sequence[int]) -> str:
 
 
 def string_to_counts(s: Union[str, bytes]) -> List[int]:
+    """maskApi rleFrString semantics."""
+    return _native.string_to_counts(s)
+
+
+def string_to_counts_np(s: Union[str, bytes]) -> List[int]:
+    """string_to_counts's plain version."""
     if isinstance(s, bytes):
         s = s.decode("ascii")
     counts: List[int] = []
@@ -119,10 +136,17 @@ def encode_pasted(binary: np.ndarray, x0: int, y0: int, im_h: int, im_w: int) ->
     zero-run, both merged arithmetically. Byte-identical to
     ``encode(canvas)`` (tested) at O(im_h*bw) instead of O(im_h*im_w) — this
     is the hot path of mask pasting (segm_results runs it per detection)."""
+    return {"size": [int(im_h), int(im_w)],
+            "counts": _native.encode_pasted(binary, x0, y0, im_h, im_w)}
+
+
+def encode_pasted_np(binary: np.ndarray, x0: int, y0: int, im_h: int, im_w: int) -> RLE:
+    """encode_pasted's plain version: a zero strip of the patch's columns,
+    encoded in numpy, with the leading and trailing zero columns merged."""
     bh, bw = binary.shape
     if bh == 0 or bw == 0:
         return {"size": [int(im_h), int(im_w)],
-                "counts": counts_to_string([im_h * im_w])}
+                "counts": counts_to_string_np([im_h * im_w])}
     strip = np.zeros((im_h, bw), np.uint8)
     strip[y0:y0 + bh] = binary
     counts = encode_counts(strip)
@@ -133,7 +157,7 @@ def encode_pasted(binary: np.ndarray, x0: int, y0: int, im_h: int, im_w: int) ->
             counts.append(tail)
         else:
             counts[-1] += tail
-    return {"size": [int(im_h), int(im_w)], "counts": counts_to_string(counts)}
+    return {"size": [int(im_h), int(im_w)], "counts": counts_to_string_np(counts)}
 
 
 def decode(rle: RLE) -> np.ndarray:
@@ -145,10 +169,12 @@ def decode(rle: RLE) -> np.ndarray:
 
 
 def area(rle: RLE) -> int:
-    counts = rle["counts"]
-    if isinstance(counts, (str, bytes)):
-        counts = string_to_counts(counts)
-    return int(np.sum(counts[1::2]))
+    return _native.area(_as_counts(rle))
+
+
+def area_np(rle: RLE) -> int:
+    """area's plain version."""
+    return int(np.sum(_as_counts_np(rle)[1::2]))
 
 
 def to_bbox(rle: RLE) -> np.ndarray:
@@ -242,6 +268,13 @@ def _as_counts(rle: RLE) -> List[int]:
     return counts
 
 
+def _as_counts_np(rle: RLE) -> List[int]:
+    counts = rle["counts"]
+    if isinstance(counts, (str, bytes)):
+        counts = string_to_counts_np(counts)
+    return counts
+
+
 def rle_intersection_area(a: RLE, b: RLE) -> int:
     return _interval_intersection(
         _one_intervals(_as_counts(a)), _one_intervals(_as_counts(b))
@@ -251,8 +284,14 @@ def rle_intersection_area(a: RLE, b: RLE) -> int:
 def rle_iou(dts: List[RLE], gts: List[RLE], iscrowd: Sequence[bool]) -> np.ndarray:
     """(D, G) IoU matrix with the COCO crowd convention: for crowd gt,
     iou = intersection / dt_area (pycocotools iou semantics)."""
-    d_iv = [_one_intervals(_as_counts(d)) for d in dts]
-    g_iv = [_one_intervals(_as_counts(g)) for g in gts]
+    return _native.iou_matrix([_as_counts(d) for d in dts], [_as_counts(g) for g in gts],
+                              iscrowd)
+
+
+def rle_iou_np(dts: List[RLE], gts: List[RLE], iscrowd: Sequence[bool]) -> np.ndarray:
+    """rle_iou's plain version."""
+    d_iv = [_one_intervals(_as_counts_np(d)) for d in dts]
+    g_iv = [_one_intervals(_as_counts_np(g)) for g in gts]
     d_area = [int(np.sum(iv[:, 1] - iv[:, 0])) for iv in d_iv]
     g_area = [int(np.sum(iv[:, 1] - iv[:, 0])) for iv in g_iv]
     out = np.zeros((len(dts), len(gts)), np.float64)

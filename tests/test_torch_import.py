@@ -50,7 +50,9 @@ def test_port_imports_without_jax():
     assert "detectorch_tpu_torch.ops.keypoints" in mods
     assert "detectorch_tpu_torch.data.synth" in mods
     for m in ("parallel.mesh", "parallel.launch", "parallel.dryrun", "tools.dryrun_multichip",
-              "tools.multicard_check"):
+              "tools.multicard_check", "tools.demo", "eval.rle_native", "utils.vis",
+              "utils.colormap", "utils.io", "utils.selective_search", "utils.debug",
+              "utils.profiling"):
         assert f"detectorch_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n" + LEAK_CHECK)
@@ -331,6 +333,52 @@ assert ranks == [[], []], ranks
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_demo_and_utilities_run_without_jax(tmp_path):
+    # the demo CLI on the CPU (a small preset, random weights) through
+    # run_demo and the native RLE, under debug's checked; then
+    # assert_finite_tree, vis under profiling's trace, device_timer, io,
+    # colormap and selective_search
+    code = """
+import os, sys
+import cv2
+import numpy as np
+import torch
+import detectorch_tpu_torch.config as config
+from detectorch_tpu_torch.eval import rle, rle_native
+from detectorch_tpu_torch.tools import demo
+from detectorch_tpu_torch.utils import colormap, io, selective_search, vis
+from detectorch_tpu_torch.utils.debug import assert_finite_tree, checked
+from detectorch_tpu_torch.utils.profiling import device_timer, trace
+
+tmp = sys.argv[1]
+preset = "e2e_mask_rcnn_R-50-FPN_2x"
+config.PRESETS[preset] = config.PRESETS[preset].replace(
+    compute_dtype="float32", rpn=config.RPNConfig(pre_nms_top_n=60, post_nms_top_n=12))
+small = config.TestConfig
+config.TestConfig = lambda: small(target_size=48, max_size=64, detections_per_img=4,
+                                  score_thresh=0.0, exact_blob_dims=True)
+image = os.path.join(tmp, "in.png")
+cv2.imwrite(image, np.random.RandomState(0).randint(0, 256, (40, 60, 3)).astype(np.uint8))
+out = os.path.join(tmp, "out.png")
+res = checked(demo.main)(["--image", image, "--out", out, "--thresh", "0.0",
+                          "--device", "cpu"])
+assert cv2.imread(out).shape == (40, 60, 3) and len(res["rles"]) == len(res["scores"]) > 0
+assert rle_native.library.path.exists() and rle.decode(res["rles"][0]).shape == (40, 60)
+assert_finite_tree(res)
+with trace(os.path.join(tmp, "trace")):
+    vis.vis_one_image_opencv(cv2.imread(image), res["boxes"], res["scores"], res["classes"],
+                             res["rles"], thresh=0.0)
+assert os.listdir(os.path.join(tmp, "trace"))
+assert device_timer(lambda: torch.ones(8) * 2, iters=2) > 0
+io.save_object(colormap.colormap(), os.path.join(tmp, "c.pkl"))
+assert len(selective_search.selective_search(np.zeros((40, 60, 3), np.uint8))) > 0
+""" + LEAK_CHECK
+    # the Tier-1 command's six workers share the cores: one torch thread
+    proc = _python(["-c", code, str(tmp_path)], cwd=REPO,
+                   env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_no_jax_import_in_port_sources():
     # neither jax nor any module of the JAX package, at any indentation
     pattern = re.compile(r"^\s*(import|from) (jax|detectorch_tpu)(\.|\s|$)", re.M)
@@ -340,8 +388,17 @@ def test_no_jax_import_in_port_sources():
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for rel in ("train/e2e.py", "tools/make_proposals.py", "tools/train_fast.py",
                 "parallel/mesh.py", "parallel/launch.py", "parallel/dryrun.py",
-                "tools/dryrun_multichip.py", "tools/multicard_check.py"):
+                "tools/dryrun_multichip.py", "tools/multicard_check.py", "tools/demo.py",
+                "eval/rle_native.py", "utils/vis.py", "utils/colormap.py", "utils/io.py",
+                "utils/selective_search.py", "utils/debug.py", "utils/profiling.py"):
         assert os.path.join(REPO, "detectorch_tpu_torch", rel) in paths, rel
+    # the native RLE's loader reads its own source, which needs neither
+    # Python's headers nor numpy's, nor the JAX package's extension
+    loader = open(os.path.join(REPO, "detectorch_tpu_torch", "eval", "rle_native.py")).read()
+    assert '"csrc" / "rle_native.cpp"' in loader and "detectorch_tpu_rle_native" not in loader
+    cpp = open(os.path.join(REPO, "detectorch_tpu_torch", "csrc", "rle_native.cpp")).read()
+    includes = re.findall(r"^#include [<\"](.+)[>\"]", cpp, re.M)
+    assert includes and not [h for h in includes if "Python" in h or "numpy" in h], includes
     offenders = [p for p in paths if pattern.search(open(p).read())]
     assert not offenders
     assert pattern.search("    from detectorch_tpu.config import PRESETS\n")
