@@ -151,15 +151,31 @@ Phases — each passes or the script exits non-zero:
      (the forward kernel's events in the trace) and device_timer of phase
      4's request, serial and pipelined; utils/debug.checked around the
      flagship request (passes), with one NaN pixel (raises ValueError), and
-     assert_finite_tree on its outputs.
+     assert_finite_tree on its outputs;
+ 27. production AP: tools/production_ap on e2e_mask_rcnn_R-50-FPN_2x,
+     e2e_faster_rcnn_R-50-FPN_2x, e2e_mask_rcnn_R-50-C4_2x and
+     e2e_keypoint_rcnn_R-50-FPN_1x, with probe weights that the card fits
+     (tools/probe_weights) on the port's data/synth sets (24 images at
+     224x288; 16 person-keypoints images): evaluate_dataset at each rung of
+     the ladder (1 fp32 plain path on CPU tensors, 2 fp32 through the
+     kernels with TF32 off, 3 + bf16 compute, 4 + the 832x1344 buckets,
+     5 + device_preprocess, 6 + the batched engine at batch 4 with the bf16
+     mask fetch; rows 1, 2 and 6 on C4 and keypoint, to keep the phase near
+     150 s): the 12 COCO stats of each task, every one finite, box AP
+     above 0.05 in every row, row 2 within 0.01 of row 1 on each task's
+     AP@[.5:.95] (rows 3-6 printed, not bounded), and the forward kernel
+     launched once per request for the box call and once more for the mask
+     or keypoint call in rows 2-6, never in row 1, the backward never.
 
 The line before the last is a JSON summary of the kernels (their times and
 bounds are those of the random bf16 7x7 call; "calls" lists every timed
 call, FPN, C4 and the keypoint calls; "launches" counts phase 10's three steps,
-"launches_by_path" each path's timed run, per rank for phases 23-25, and
-the demo's counted run for "demo" and "demo_keypoint"), with phases 22-24's
-times under "parallel", the native RLE's under "rle_native" and the demo's
-and device_timer's under "demo"; the line before it nvidia-smi's
+"launches_by_path" each path's timed run, per rank for phases 23-25, the
+demo's counted run for "demo" and "demo_keypoint", and each row of phase 27
+by preset under "production_ap"), with phases 22-24's times under
+"parallel", the native RLE's under "rle_native", the demo's and
+device_timer's under "demo" and phase 27's rows and seconds under
+"production_ap"; the line before it nvidia-smi's
 name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
@@ -3118,6 +3134,93 @@ def phase_demo(device, smi, rle_build_s, kept, infer, tag="26 demo", batch=BATCH
                       "phase4_ms": batch * 1e3 / rate}, rle_times
 
 
+# ------------------------------------------------- production AP (phase 27)
+
+# the ladder of tools/production_ap per preset, as substrings of the rows
+# after row 1 (empty: all six): every row on the FPN presets; rows 1, 2 and
+# 6 on C4 and keypoint, whose rows 3-5 would take the phase further past
+# its ~150 s (the CLI runs them: python -m detectorch_tpu_torch.tools.production_ap)
+PAP_PLAN = (
+    ("e2e_mask_rcnn_R-50-FPN_2x", ()),
+    ("e2e_faster_rcnn_R-50-FPN_2x", ()),
+    ("e2e_mask_rcnn_R-50-C4_2x", ("fp32/kernel", "production")),
+    (KP_PRESET, ("fp32/kernel", "production")),
+)
+# box AP of every row above this (probes that detect nothing are refused, as
+# the CPU parity tests refuse them)
+PAP_MIN_BOX_AP = 0.05
+# fp32 through the kernels against the fp32 plain path: AP@[.5:.95] of each
+# task within this, a sanity bound ~5x the summation-order change the TPU
+# study saw (PARITY.md), not a quality claim
+PAP_ROW2_TOL = 0.01
+
+
+def phase_production_ap(device, smi, plan=PAP_PLAN, images=None, tag="27 production AP"):
+    """Phase 27: tools/production_ap's ladder on each preset of `plan`, from
+    probe weights the card fits on the port's data/synth sets. Every stat
+    finite, box AP above PAP_MIN_BOX_AP in every row, row 2 within
+    PAP_ROW2_TOL of row 1 on each task's AP, and the forward kernel launched
+    once per request for the box call and once more for the mask or
+    keypoint call in each card row (row 1: none; the backward: none).
+    Returns the launches by preset and row, and the rows' summary."""
+    import tempfile
+
+    import numpy as np
+
+    from detectorch_tpu_torch.config import PRESETS
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
+    from detectorch_tpu_torch.tools import production_ap as pap
+
+    t_phase = time.perf_counter()
+    launches, summary = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        roi_align_fwd.launches = roi_align_bwd.launches = 0
+        for preset, variants in plan:
+            cfg = PRESETS[preset]
+            t0 = time.perf_counter()
+            rows = pap.run_ladder(preset, variants, device, root, images=images, echo=False)
+            per_request = 1 + int(cfg.use_mask) + int(cfg.keypoint is not None)
+            for r in rows:
+                on_card = r["row"] > 1 and device.type == "cuda"
+                aps = ", ".join(f"{t} {v[0]:.4f}" for t, v in r["stats"].items())
+                changes = ", ".join(f"{t} {d:+.5f}"
+                                    for t, d in r.get("ap_delta_vs_row1", {}).items())
+                delta = (f"; AP change {changes}, max |change| of any stat "
+                         f"{r['max_delta_vs_row1']:.5f}" if r["row"] > 1 else "")
+                log(f"[{tag}] {preset} row {r['row']} {r['variant']} ({r['device']}, batch "
+                    f"{r['batch']}): {aps}{delta}; launches {r['launches']} over "
+                    f"{r['requests']} requests; {r['seconds']:.1f} s")
+                check(all(np.isfinite(v).all() for v in r["stats"].values()),
+                      f"{preset} row {r['row']}: a COCO stat is not finite")
+                check(r["bbox_ap"] > PAP_MIN_BOX_AP,
+                      f"{preset} row {r['row']}: box AP {r['bbox_ap']:.4f} <= {PAP_MIN_BOX_AP}")
+                expected = per_request * r["requests"] if on_card else 0
+                check(r["launches"] == {"roi_align_fwd": expected, "roi_align_bwd": 0},
+                      f"{preset} row {r['row']}: launches {r['launches']}, expected "
+                      f"{expected} forward ({per_request} a request) and no backward")
+            if device.type == "cuda":
+                check(len(rows) > 1 and rows[1]["variant"] == "fp32/kernel",
+                      f"{preset}: the ladder ran no fp32 kernel row")
+                worst = max(abs(d) for d in rows[1]["ap_delta_vs_row1"].values())
+                check(worst <= PAP_ROW2_TOL,
+                      f"{preset}: fp32 through the kernels moved AP by {worst:.5f} against the "
+                      f"plain path (bound {PAP_ROW2_TOL})")
+            launches[preset] = {r["variant"]: r["launches"] for r in rows}
+            summary[preset] = {"seconds": time.perf_counter() - t0, "rows": [
+                {k: r[k] for k in ("row", "variant", "device", "batch", "requests", "launches",
+                                   "seconds", "stats")}
+                | {k: r[k] for k in ("ap_delta_vs_row1", "max_delta_vs_row1") if k in r}
+                for r in rows]}
+        total = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": roi_align_bwd.launches}
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] {len(plan)} presets in {seconds:.1f} s ("
+        + ", ".join(f"{p} {s['seconds']:.1f} s" for p, s in summary.items())
+        + f"), probe fits included; launches in the phase {total} on {smi}")
+    if device.type == "cuda":
+        check(total["roi_align_fwd"] > 0, "phase 27 launched no forward kernel")
+    return launches, {"seconds": seconds, "presets": summary}
+
+
 def per_kernel(launches, kernel):
     """One kernel's counts of a nested {path: counts} tree."""
     if isinstance(launches, dict) and kernel in launches:
@@ -3163,6 +3266,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     demo_launches, demo_ms, rle_times = phase_demo(device, smi, rle_build_s, kept,
                                                    (infer_params, infer_rate))
+    del infer_params, kept
+    torch.cuda.empty_cache()
+    pap_launches, pap = phase_production_ap(device, smi)
     parallel_launches = {
         "world1_nccl_e2e_training": world1["launches"],
         "world2_e2e_training": [r["step_launches"] for r in world2],
@@ -3190,7 +3296,8 @@ def main() -> int:
                              **{k: v["roi_align_fwd"] for k, v in c4["launches"].items()},
                              **{k: v["roi_align_fwd"] for k, v in kp["launches"].items()},
                              **per_kernel(parallel_launches, "roi_align_fwd"),
-                             **per_kernel(demo_launches, "roi_align_fwd")},
+                             **per_kernel(demo_launches, "roi_align_fwd"),
+                             "production_ap": per_kernel(pap_launches, "roi_align_fwd")},
         "max_abs_err": summary["max_abs_err"],
         "c4_max_abs_err": c4["kernels"]["fwd_err"],
         "keypoint_max_abs_err": max(r["max_abs_err"] for r in kp["calls"]["fwd"]),
@@ -3212,7 +3319,8 @@ def main() -> int:
                                 if "training" in k},
                              **{k: v["roi_align_bwd"] for k, v in kp["launches"].items()
                                 if "training" in k},
-                             **per_kernel(parallel_launches, "roi_align_bwd")},
+                             **per_kernel(parallel_launches, "roi_align_bwd"),
+                             "production_ap": per_kernel(pap_launches, "roi_align_bwd")},
         "max_abs_err": bwd_summary["max_abs_err"],
         "c4_max_abs_err": c4["kernels"]["bwd_err"],
         "keypoint_max_abs_err": max(r["max_abs_err"] for r in kp["calls"]["bwd"]),
@@ -3234,7 +3342,7 @@ def main() -> int:
     }
     log(smi)
     log(json.dumps({"kernels": kernels, "parallel": parallel, "rle_native": rle_times,
-                    "demo": demo_ms}))
+                    "demo": demo_ms, "production_ap": pap}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -93,12 +93,10 @@ def four_layer_conv_trunk(params, x):
     return to_nhwc(y)
 
 
-def mask_head(params, roi_feats, head_type: str, arch: str = "resnet50",
-              output_prob: bool = True):
-    """Mask branch: roi_feats (N, 14, 14, C) NHWC -> (N, M, M, classes) fp32
-    sigmoid probabilities (or the logits when not output_prob). 'upshare'
-    (C4): res5 at stride 2 on 1024 channels; '1up4convs' (FPN): four 3x3
-    convs on 256."""
+def mask_trunk(params, roi_feats, head_type: str, arch: str = "resnet50"):
+    """The mask branch up to mask_fcn_logits: roi_feats (N, 14, 14, C) NHWC
+    -> relu(conv5_mask) (N, M, M, 256) NHWC. 'upshare' (C4): res5 at stride
+    2 on 1024 channels; '1up4convs' (FPN): four 3x3 convs on 256."""
     x = roi_feats.contiguous()  # NHWC, so the NCHW views below are channels_last
     if head_type == "upshare":
         x = c5_head(params, x, arch=arch, stride=2)  # (N, 7, 7, 2048)
@@ -106,7 +104,15 @@ def mask_head(params, roi_feats, head_type: str, arch: str = "resnet50",
         x = four_layer_conv_trunk(params, x)  # (N, 14, 14, 256)
     else:
         raise ValueError(head_type)
-    x = F.relu(deconv2x2(params, x, "conv5_mask"))
+    return F.relu(deconv2x2(params, x, "conv5_mask"))
+
+
+def mask_head(params, roi_feats, head_type: str, arch: str = "resnet50",
+              output_prob: bool = True):
+    """Mask branch: roi_feats (N, 14, 14, C) NHWC -> (N, M, M, classes) fp32
+    sigmoid probabilities (or the logits when not output_prob): ``mask_trunk``
+    then the 1x1 mask_fcn_logits."""
+    x = mask_trunk(params, roi_feats, head_type, arch)
     logits = conv(to_nchw(x), params["mask_fcn_logits_w"]) \
         + params["mask_fcn_logits_b"].to(x.dtype)[:, None, None]
     logits = to_nhwc(logits.float())
@@ -135,16 +141,23 @@ def bilinear_upsample2x(x):
     return to_nhwc(F.conv_transpose2d(to_nchw(x), w, stride=2, padding=1, groups=c))
 
 
-def keypoint_head(params, roi_feats, num_convs: int = 8):
-    """Keypoint branch: roi_feats (N, 14, 14, C) NHWC -> (N, 56, 56, K) fp32
-    heatmap logits: num_convs x (3x3 conv + relu), the 4x4/2 deconv to K
-    channels at 28x28 (kps_score_lowres), then the bilinear 2x upsample in
-    fp32, as JAX casts before it."""
+def keypoint_trunk(params, roi_feats, num_convs: int = 8):
+    """The keypoint branch's trunk: roi_feats (N, 14, 14, C) NHWC ->
+    num_convs x (3x3 conv + relu), (N, 14, 14, conv_dim) NHWC."""
     y = to_nchw(roi_feats.contiguous())
     for i in range(1, num_convs + 1):
         y = F.relu(conv(y, params[f"conv_fcn{i}_w"], pad=1)
                    + params[f"conv_fcn{i}_b"].to(y.dtype)[:, None, None])
-    x = deconv4x4s2(params, to_nhwc(y), "kps_score_lowres")  # (N, 28, 28, K)
+    return to_nhwc(y)
+
+
+def keypoint_head(params, roi_feats, num_convs: int = 8):
+    """Keypoint branch: roi_feats (N, 14, 14, C) NHWC -> (N, 56, 56, K) fp32
+    heatmap logits: ``keypoint_trunk``, the 4x4/2 deconv to K channels at
+    28x28 (kps_score_lowres), then the bilinear 2x upsample in fp32, as JAX
+    casts before it."""
+    x = deconv4x4s2(params, keypoint_trunk(params, roi_feats, num_convs),
+                    "kps_score_lowres")  # (N, 28, 28, K)
     return bilinear_upsample2x(x.float())  # (N, 56, 56, K)
 
 

@@ -23,11 +23,14 @@ from detectorch_tpu_torch.ops.anchors import shifted_anchors
 from detectorch_tpu_torch.ops.nms import batched_nms, topk_stable
 
 
-def rpn_head(params, x, prefix: str = "", return_logits: bool = False):
+def rpn_head(params, x, prefix: str = "", return_logits: bool = False,
+             return_hidden: bool = False):
     """x: (N, H, W, C) NHWC. Returns (cls_prob (N,H,W,A), bbox_pred (N,H,W,4A)),
     both fp32 NHWC. prefix '' for C4 blobs, '_fpn2' for the shared FPN head.
     return_logits=True returns the objectness logits instead of their
-    sigmoid (the e2e RPN loss needs logits)."""
+    sigmoid (the e2e RPN loss needs logits). return_hidden=True appends the
+    hidden activation relu(conv_rpn) (N, H, W, C) in x's dtype, the features
+    the objectness probe of ``tools/probe_weights`` is fitted on."""
     xc = to_nchw(x)
 
     def bias(name):
@@ -38,7 +41,8 @@ def rpn_head(params, x, prefix: str = "", return_logits: bool = False):
               + bias(f"rpn_cls_logits{prefix}_b")).float()
     bbox_pred = (conv(h, params[f"rpn_bbox_pred{prefix}_w"])
                  + bias(f"rpn_bbox_pred{prefix}_b")).float()
-    return to_nhwc(logits if return_logits else torch.sigmoid(logits)), to_nhwc(bbox_pred)
+    out = (to_nhwc(logits if return_logits else torch.sigmoid(logits)), to_nhwc(bbox_pred))
+    return out + (to_nhwc(h),) if return_hidden else out
 
 
 class Proposals(NamedTuple):

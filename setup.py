@@ -12,8 +12,9 @@ setup(
     description="TPU-native Detectron (Fast/Faster/Mask R-CNN) in JAX/XLA/Pallas",
     packages=find_packages(include=["detectorch_tpu", "detectorch_tpu.*",
                                     "detectorch_tpu_torch", "detectorch_tpu_torch.*"]),
-    # the port's CUDA sources, compiled by nvcc at first use
-    package_data={"detectorch_tpu_torch": ["csrc/*.cu"]},
+    # the port's CUDA sources (nvcc) and its native RLE source (the host C++
+    # compiler), compiled at first use
+    package_data={"detectorch_tpu_torch": ["csrc/*.cu", "csrc/*.cpp"]},
     ext_modules=[
         Extension(
             "detectorch_tpu_rle_native",

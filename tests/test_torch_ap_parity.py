@@ -8,6 +8,11 @@ JAX package.
 The synthetic set and the r50_fpn probe weights, which every test here
 shares, are built once per run in a directory of the test session's own;
 keeping the tests in one file keeps that build to one worker.
+
+``test_port_probe_weights`` holds the port's own probe fit
+(``tools/probe_weights``, on the CPU): its weights give the same 12 bbox
+and 12 segm (or 10 OKS) stats through the JAX package's
+``evaluate_dataset`` and through the port's, within AP_TOL.
 """
 
 import dataclasses
@@ -20,8 +25,12 @@ import torch
 from detectorch_tpu_torch import config as torch_config
 from detectorch_tpu_torch.checkpoint.convert import params_from_jax
 from detectorch_tpu_torch.data.coco import CocoDataset
+from detectorch_tpu.data.coco import CocoDataset as JaxCocoDataset
+from detectorch_tpu.eval.engine import evaluate_dataset as jax_evaluate_dataset
 from detectorch_tpu_torch.eval.engine import evaluate_dataset
+from detectorch_tpu_torch.tools import probe_weights
 from tests.ap_harness import (
+    FAMILY_PRESET,
     family_of,
     harness_cfg,
     make_probe_weights,
@@ -90,9 +99,54 @@ def _parity(preset, synth, **tcfg_overrides):
     return info
 
 
-@pytest.mark.parametrize("preset", ["e2e_mask_rcnn_R-50-FPN_2x", "fast_rcnn_R-50-FPN_2x"])
+@pytest.mark.parametrize("preset", [
+    "e2e_mask_rcnn_R-50-FPN_2x", "fast_rcnn_R-50-FPN_2x",
+    # R-101's probe build and both pipelines take ~200 s more than the
+    # Tier-1 run can give this file
+    pytest.param("e2e_mask_rcnn_R-101-FPN_2x", marks=pytest.mark.slow),
+])
 def test_ap_parity(preset, synth):
     _parity(preset, synth)
+
+
+@pytest.mark.parametrize("family", [
+    "r50_fpn",
+    # res5 on every roi (C4) and the 8-conv keypoint trunk make these fits
+    # and evaluations several minutes long on the CPU
+    pytest.param("r50_c4", marks=pytest.mark.slow),
+    pytest.param("r50_fpn_kp", marks=pytest.mark.slow),
+])
+def test_port_probe_weights(family, synth, tmp_path_factory):
+    """The port's own probe fit on the CPU: its weights through the JAX
+    package's evaluate_dataset and the port's give the same stats."""
+    preset = FAMILY_PRESET[family]
+    if family == "r50_fpn_kp":
+        root = str(tmp_path_factory.mktemp("ap_synth_kp"))
+        pdataset = probe_weights.prepare_keypoint_dataset(root)
+    else:
+        root = synth[2]
+        pdataset = probe_weights.prepare_dataset(root)[0]
+    params = probe_weights.make_probe_weights(family, pdataset, device="cpu", cache_root=root)
+    cfg, tcfg = harness_cfg(preset)
+    pcfg, ptcfg = probe_weights.harness_cfg(preset)
+    assert dataclasses.asdict(pcfg) == dataclasses.asdict(cfg)
+    assert dataclasses.asdict(ptcfg) == dataclasses.asdict(tcfg)
+    jdataset = JaxCocoDataset(os.path.join(root, "instances_synth.json"),
+                              pdataset.image_directory)
+    jax_bbox, jax_segm, jax_info = jax_evaluate_dataset(
+        cfg, tcfg, params, jdataset, roidb=jdataset.get_roidb(gt=False), verbose=False)
+    ours_bbox, ours_segm, info = evaluate_dataset(
+        pcfg, ptcfg, params_from_jax(params), pdataset, roidb=pdataset.get_roidb(gt=False),
+        verbose=False, device="cpu")
+    assert ours_bbox[0] > 0.05, f"degenerate box AP {ours_bbox[0]}"
+    np.testing.assert_allclose(ours_bbox, jax_bbox, rtol=0, atol=AP_TOL)
+    if cfg.use_mask:
+        assert ours_segm is not None and ours_segm[0] > 0.05, ours_segm
+        np.testing.assert_allclose(ours_segm, jax_segm, rtol=0, atol=AP_TOL)
+    if cfg.keypoint is not None:
+        ours_kps, jax_kps = info["keypoints_stats"], jax_info["keypoints_stats"]
+        assert len(ours_kps) == 10 and ours_kps[0] > 0.05, ours_kps
+        np.testing.assert_allclose(ours_kps, jax_kps, rtol=0, atol=AP_TOL)
 
 
 @pytest.mark.parametrize("overrides", [

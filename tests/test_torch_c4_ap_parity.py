@@ -1,16 +1,18 @@
 """Full-pipeline AP parity of the port on the C4 family: its
-``evaluate_dataset`` on ``e2e_mask_rcnn_R-50-C4_2x`` against the torch +
-numpy mirror of the reference pipeline (tests/ap_harness.py, family
-``r50_c4``), on the harness's synthetic COCO set with its probe weights,
-scored by the same COCOeval. Every one of the 12 bbox and 12 segm stats
-must lie within AP_TOL = 2e-4, as tests/test_torch_ap_parity.py holds the
-FPN presets.
+``evaluate_dataset`` on ``e2e_mask_rcnn_R-50-C4_2x``,
+``fast_rcnn_R-50-C4_2x`` (the set's precomputed proposals) and
+``e2e_faster_rcnn_R-50-C4_2x`` against the torch + numpy mirror of the
+reference pipeline (tests/ap_harness.py, family ``r50_c4``), on the
+harness's synthetic COCO set with its probe weights, scored by the same
+COCOeval. Every one of the 12 bbox stats (and the 12 segm stats of the mask
+preset) must lie within AP_TOL = 2e-4, as tests/test_torch_ap_parity.py
+holds the FPN presets.
 
 The set and the r50_c4 probe weights are built once, in a directory of the
 test session's own; this file stands alone so that the build lands on its
-own worker. It is marked slow: alone, on one thread, it takes ~680 s (the
-probe-weight build and both pipelines run res5 on every roi), more than
-the Tier-1 run can give one file.
+own worker. It is marked slow: alone, on one thread, the mask preset takes
+~680 s (the probe-weight build and both pipelines run res5 on every roi),
+more than the Tier-1 run can give one file.
 """
 
 import dataclasses
@@ -36,7 +38,6 @@ from tests.ap_harness import (
 pytestmark = pytest.mark.slow
 
 AP_TOL = 2e-4
-PRESET = "e2e_mask_rcnn_R-50-C4_2x"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -48,14 +49,24 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def test_ap_parity_c4(tmp_path_factory):
+@pytest.fixture(scope="module")
+def synth_c4(tmp_path_factory):
+    """(dataset, proposals file, root) with the r50_c4 probe weights built."""
     root = str(tmp_path_factory.mktemp("ap_synth_c4"))
-    dataset, _ = prepare_dataset(root=root)
-    cfg, tcfg = harness_cfg(PRESET)
-    assert family_of(PRESET) == "r50_c4" and cfg.rpn == C4_RPN
+    dataset, proposals_file = prepare_dataset(root=root)
+    make_probe_weights("r50_c4", dataset, cache_root=root)
+    return dataset, proposals_file, root
+
+
+@pytest.mark.parametrize("preset", [
+    "e2e_mask_rcnn_R-50-C4_2x", "fast_rcnn_R-50-C4_2x", "e2e_faster_rcnn_R-50-C4_2x"])
+def test_ap_parity_c4(preset, synth_c4):
+    dataset, proposals_file, root = synth_c4
+    cfg, tcfg = harness_cfg(preset)
+    assert family_of(preset) == "r50_c4" and cfg.rpn == C4_RPN
     # the harness's configuration, built from the port's own PRESETS
     c = torch_config
-    pcfg = c.PRESETS[PRESET].replace(
+    pcfg = c.PRESETS[preset].replace(
         compute_dtype="float32", roi_align_precision="highest",
         rpn=c.RPNConfig(pre_nms_top_n=C4_RPN.pre_nms_top_n,
                         post_nms_top_n=C4_RPN.post_nms_top_n))
@@ -64,11 +75,16 @@ def test_ap_parity_c4(tmp_path_factory):
     assert dataclasses.asdict(ptcfg) == dataclasses.asdict(tcfg)
     params = make_probe_weights("r50_c4", dataset, cache_root=root)
     pdataset = CocoDataset(os.path.join(root, "instances_synth.json"), dataset.image_directory)
+    proposals = {} if cfg.use_rpn else {"proposal_file": proposals_file}
     ours_bbox, ours_segm, _ = evaluate_dataset(pcfg, ptcfg, params_from_jax(params), pdataset,
-                                               roidb=pdataset.get_roidb(gt=False),
+                                               roidb=pdataset.get_roidb(gt=False, **proposals),
                                                verbose=False, device="cpu")
     mir_bbox, mir_segm, _ = mirror_evaluate(cfg, tcfg, params, dataset,
-                                            dataset.get_roidb(gt=False))
-    assert ours_bbox[0] > 0.05 and ours_segm[0] > 0.05, (ours_bbox[0], ours_segm[0])
+                                            dataset.get_roidb(gt=False, **proposals))
+    assert ours_bbox[0] > 0.05, ours_bbox[0]
     np.testing.assert_allclose(ours_bbox, mir_bbox, rtol=0, atol=AP_TOL)
-    np.testing.assert_allclose(ours_segm, mir_segm, rtol=0, atol=AP_TOL)
+    if cfg.use_mask:
+        assert ours_segm[0] > 0.05, ours_segm[0]
+        np.testing.assert_allclose(ours_segm, mir_segm, rtol=0, atol=AP_TOL)
+    else:
+        assert ours_segm is None and mir_segm is None

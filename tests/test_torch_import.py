@@ -52,7 +52,7 @@ def test_port_imports_without_jax():
     for m in ("parallel.mesh", "parallel.launch", "parallel.dryrun", "tools.dryrun_multichip",
               "tools.multicard_check", "tools.demo", "eval.rle_native", "utils.vis",
               "utils.colormap", "utils.io", "utils.selective_search", "utils.debug",
-              "utils.profiling"):
+              "utils.profiling", "tools.probe_weights", "tools.production_ap"):
         assert f"detectorch_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n" + LEAK_CHECK)
@@ -379,6 +379,35 @@ assert len(selective_search.selective_search(np.zeros((40, 60, 3), np.uint8))) >
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_production_ap_runs_without_jax(tmp_path):
+    # the probe fit on a 2-image data/synth set and the ladder's row 1, on
+    # the CPU, through the CLI's main
+    code = """
+import sys
+from detectorch_tpu_torch.tools import production_ap
+rows = production_ap.main(["--device", "cpu", "--images", "2", "--root", sys.argv[1],
+                           "--presets", "e2e_faster_rcnn_R-50-FPN_2x"])
+assert [r["variant"] for r in rows] == ["fp32/plain (baseline)"] and rows[0]["bbox_ap"] > 0
+""" + LEAK_CHECK
+    # the Tier-1 command's six workers share the cores: one torch thread
+    proc = _python(["-c", code, str(tmp_path)], cwd=REPO,
+                   env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_package_data_ships_every_port_source():
+    # an installed copy builds the kernels and the native RLE from these
+    import fnmatch
+
+    setup = open(os.path.join(REPO, "setup.py")).read()
+    globs = re.findall(r'"(csrc/[^"]+)"', re.search(
+        r'package_data=\{"detectorch_tpu_torch": \[([^\]]*)\]\}', setup).group(1))
+    csrc = os.path.join(REPO, "detectorch_tpu_torch", "csrc")
+    sources = sorted(os.listdir(csrc))
+    assert {"rle_native.cpp", "roi_align_fwd.cu", "roi_align_bwd.cu"} <= set(sources)
+    assert [f for f in sources if not any(fnmatch.fnmatch(f"csrc/{f}", g) for g in globs)] == []
+
+
 def test_no_jax_import_in_port_sources():
     # neither jax nor any module of the JAX package, at any indentation
     pattern = re.compile(r"^\s*(import|from) (jax|detectorch_tpu)(\.|\s|$)", re.M)
@@ -390,8 +419,14 @@ def test_no_jax_import_in_port_sources():
                 "parallel/mesh.py", "parallel/launch.py", "parallel/dryrun.py",
                 "tools/dryrun_multichip.py", "tools/multicard_check.py", "tools/demo.py",
                 "eval/rle_native.py", "utils/vis.py", "utils/colormap.py", "utils/io.py",
-                "utils/selective_search.py", "utils/debug.py", "utils/profiling.py"):
+                "utils/selective_search.py", "utils/debug.py", "utils/profiling.py",
+                "tools/probe_weights.py", "tools/production_ap.py"):
         assert os.path.join(REPO, "detectorch_tpu_torch", rel) in paths, rel
+    # nor the repository's tests (the AP harness, the mirror) from the package
+    tests_import = re.compile(r"^\s*(import|from) tests(\.|\s|$)", re.M)
+    package = [p for p in paths if os.sep + "detectorch_tpu_torch" + os.sep in p]
+    assert not [p for p in package if tests_import.search(open(p).read())]
+    assert tests_import.search("from tests import ap_harness\n")
     # the native RLE's loader reads its own source, which needs neither
     # Python's headers nor numpy's, nor the JAX package's extension
     loader = open(os.path.join(REPO, "detectorch_tpu_torch", "eval", "rle_native.py")).read()
