@@ -166,6 +166,20 @@ Phases — each passes or the script exits non-zero:
      AP@[.5:.95] (rows 3-6 printed, not bounded), and the forward kernel
      launched once per request for the box call and once more for the mask
      or keypoint call in rows 2-6, never in row 1, the backward never.
+ 28. the measurement tools (detectorch_tpu_torch/tools), in process:
+     tools/bench at batch 8 with 5 requests (2 forward launches each), and
+     with BENCH_MODE=train, the Fast R-CNN step (1 forward + 1 backward a
+     step); tools/profile_e2e_train with masks at 5 steps (2 + 2 a step);
+     tools/bench_e2e on 48 synthetic 640x960 JPGs at batch 8 (2 forward a
+     batch); tools/profile_stages on the flagship and on C4 (2 forward a
+     request, the staged outputs equal to the fused request's bit for bit);
+     tools/profile_mfu: the chained bf16 matmul rate, the FLOPs of the
+     flagship request (equal to the closed-form count of its conv and
+     linear layers plus roi_align_work's operations), of the Fast R-CNN
+     step and of the three e2e steps, and the MFU of phase 4's and this
+     phase's rates and steps; every rate finite and above 0, vs_baseline
+     null. Phases 13 and 17 split their requests by stage through
+     tools/profile_stages too.
 
 The line before the last is a JSON summary of the kernels (their times and
 bounds are those of the random bf16 7x7 call; "calls" lists every timed
@@ -174,8 +188,10 @@ call, FPN, C4 and the keypoint calls; "launches" counts phase 10's three steps,
 demo's counted run for "demo" and "demo_keypoint", and each row of phase 27
 by preset under "production_ap"), with phases 22-24's times under
 "parallel", the native RLE's under "rle_native", the demo's and
-device_timer's under "demo" and phase 27's rows and seconds under
-"production_ap"; the line before it nvidia-smi's
+device_timer's under "demo", phase 27's rows and seconds under
+"production_ap", and phase 28's tool lines under "bench" (its launch
+counts, each tool's whole call from counts set to 0, in
+"launches_by_path"); the line before it nvidia-smi's
 name and power limit; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
@@ -229,13 +245,6 @@ GRAD_REL, GRAD_COS, FLIP_REL = 1e-4, 0.9999, 1e-2
 # 832x1344 and 1344x832 buckets, each with a short tail batch
 EVAL_IMAGES = ((480, 640, 27), (640, 480, 9))
 PARITY_IMAGES = 4
-# the least time of a kernel call (NVIDIA's data sheet, H100 SXM at
-# 700 W): its bytes over the memory rate, or its fp32
-# operations over the CUDA cores' rate, whichever is larger
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -361,31 +370,11 @@ def plain_bwd_f64(g, shapes, rois, bidx, levels, scales, pooled_h, pooled_w, sam
     return [part.reshape(tuple(shape)) for part, shape in zip(flat.split(sizes), shapes)]
 
 
-def roofline(nbytes: float, flops: float):
-    """(bound_ms, bound_by) of a call that moves `nbytes` and does `flops`."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def roi_align_work(level_shapes, rois, bidx, levels, scales, pooled, channels):
-    """What one RoIAlign call over these rois needs: the feature pixels its
-    live samples' taps touch (each counted once) and the fp32 operations of
-    its taps (an FMA per live tap and channel)."""
-    import torch
-
-    from detectorch_tpu_torch.ops.roi_align import _bilinear_taps
-
-    idx, wts, *_ = _bilinear_taps([s[:3] for s in level_shapes], rois, bidx, levels, scales,
-                                  pooled, pooled, 2, 8)
-    live = wts[0] != 0  # hy * hx > 0 for every live sample
-    pixels = torch.unique(torch.cat([i[live] for i in idx])).numel()
-    return pixels, 2 * 4 * int(live.sum()) * channels
-
-
 def fwd_bound(feats, rois, bidx, levels, scales, pooled):
     """The forward's least time: the touched feature bytes read once, rois
     and indices read, the fp32 output written, or its operations."""
+    from detectorch_tpu_torch.tools.measure import roi_align_work, roofline
+
     channels = feats[0].shape[-1]
     pixels, flops = roi_align_work([f.shape for f in feats], rois, bidx, levels, scales,
                                    pooled, channels)
@@ -399,6 +388,8 @@ def bwd_bound(shapes, rois, bidx, levels, scales, pooled, out_dtype):
     """The backward's least time: g, rois and indices read once, the whole
     gradient pyramid written once, or its operations."""
     import torch
+
+    from detectorch_tpu_torch.tools.measure import roi_align_work, roofline
 
     channels = shapes[0][-1]
     _, flops = roi_align_work(shapes, rois, bidx, levels, scales, pooled, channels)
@@ -1418,66 +1409,6 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
     return launches, info["images_per_sec"]
 
 
-def make_e2e_batch(rng, orig_sizes, blob_hw, target_size, max_size, gt_range, device,
-                   keypoints=0, num_classes=81):
-    """An e2e training batch in the uint8 schema, made with numpy: uint8
-    noise images of `orig_sizes`, padded to one raw bucket, with their
-    resize tables and meta (``data.device_input``); per image a number of
-    gts in `gt_range`, each a 12-gon with jittered radii whose tight box is
-    the gt box, classes 1 to num_classes - 1, and its raster wrt its own box at
-    GT_RASTER_RES (``train.sampler.polys_to_mask_wrt_box``), padded to
-    GT_PAD slots as the trainer pads them. With `keypoints` > 0, each gt
-    also carries that many keypoints inside its box, input-scaled, a fifth
-    unlabelled (v = 0), as gt_keypoints (B, GT_PAD, keypoints, 3)."""
-    import numpy as np
-    import torch
-
-    from detectorch_tpu_torch.data.device_input import RAW_STRIDE, pack_tables_meta, prepare_raw
-    from detectorch_tpu_torch.tools.train_fast import GT_PAD
-    from detectorch_tpu_torch.train.e2e import GT_RASTER_RES
-    from detectorch_tpu_torch.train.sampler import polys_to_mask_wrt_box
-
-    raw_hw = (max(-(-h // RAW_STRIDE) * RAW_STRIDE for h, _ in orig_sizes),
-              max(-(-w // RAW_STRIDE) * RAW_STRIDE for _, w in orig_sizes))
-    out = {k: [] for k in ("raw", "tables", "meta", "gt_boxes", "gt_classes", "gt_valid",
-                           "gt_masks", "gt_mask_valid")}
-    if keypoints:
-        out["gt_keypoints"] = []
-    for h, w in orig_sizes:
-        raw, m = prepare_raw(rng.randint(0, 256, (h, w, 3)).astype(np.uint8), target_size,
-                             max_size, buckets=(blob_hw,))
-        padded = np.zeros(raw_hw + (3,), np.uint8)
-        padded[: raw.shape[0], : raw.shape[1]] = raw
-        tables, meta = pack_tables_meta(m)
-        n = rng.randint(gt_range[0], gt_range[1] + 1)
-        boxes = np.zeros((GT_PAD, 4), np.float32)
-        masks = np.zeros((GT_PAD, GT_RASTER_RES, GT_RASTER_RES), np.uint8)
-        for j in range(n):
-            radius = rng.uniform(0.03, 0.3) * min(h, w)
-            cx, cy = rng.uniform(radius, w - radius), rng.uniform(radius, h - radius)
-            ang = np.sort(rng.uniform(0, 2 * np.pi, 12))
-            rad = radius * (0.6 + 0.4 * rng.rand(12))
-            px, py = cx + rad * np.cos(ang), cy + rad * np.sin(ang)
-            box = np.array([px.min(), py.min(), px.max(), py.max()])
-            masks[j] = polys_to_mask_wrt_box([np.stack([px, py], 1).reshape(-1)], box,
-                                             GT_RASTER_RES)
-            boxes[j] = box * m["scale"]
-        if keypoints:
-            kxy = boxes[:, None, :2] + rng.uniform(0, 1, (GT_PAD, keypoints, 2)) \
-                * (boxes[:, None, 2:] - boxes[:, None, :2])
-            vis = np.where(rng.rand(GT_PAD, keypoints) < 0.2, 0.0, 2.0)
-            vis[n:] = 0.0
-            out["gt_keypoints"].append(
-                np.concatenate([kxy, vis[..., None]], -1).astype(np.float32))
-        valid = np.arange(GT_PAD) < n
-        for k, v in (("raw", padded), ("tables", tables), ("meta", meta), ("gt_boxes", boxes),
-                     ("gt_classes",
-                      np.where(valid, rng.randint(1, num_classes, GT_PAD), 0).astype(np.int32)),
-                     ("gt_valid", valid), ("gt_masks", masks), ("gt_mask_valid", valid)):
-            out[k].append(v)
-    return {k: torch.from_numpy(np.stack(v)).to(device) for k, v in out.items()}
-
-
 # COCO-like landscape image sizes of phase 10's batch; all resize into the
 # 832x1344 bucket at target size 800, max size 1333
 E2E_SIZES = ((480, 640), (427, 640), (500, 750), (375, 500), (480, 640), (426, 640),
@@ -1533,6 +1464,7 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
     from detectorch_tpu_torch.config import PRESETS, SamplerConfig, SolverConfig
     from detectorch_tpu_torch.models.detector import init_params
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
+    from detectorch_tpu_torch.tools.profile_e2e_train import make_e2e_batch
     from detectorch_tpu_torch.train.e2e import e2e_losses, make_e2e_train_step, torch_uniforms
     from detectorch_tpu_torch.train.solver import apply_update
     from detectorch_tpu_torch.train.train_step import device_images
@@ -1680,6 +1612,7 @@ def phase_e2e_fp32_grads(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E
         multilevel_roi_align_backward,
     )
     from detectorch_tpu_torch.ops.roi_align_fused import roi_align_fused
+    from detectorch_tpu_torch.tools.profile_e2e_train import make_e2e_batch
     from detectorch_tpu_torch.train.e2e import e2e_losses, torch_uniforms
     from detectorch_tpu_torch.train.train_step import device_images, make_init_state
 
@@ -1780,6 +1713,8 @@ def c4_work(rois, pooled, channels, height, width, sampling_ratio=0, max_grid=8)
 def c4_fwd_bound(feats, rois, pooled):
     """The C4 forward's least time: the feature map read once (counted from
     shapes), rois read, the fp32 output written, or its operations."""
+    from detectorch_tpu_torch.tools.measure import roofline
+
     b, h, w, c = feats.shape
     r = rois.shape[0] * rois.shape[1]
     nbytes = feats.numel() * feats.element_size() + 16 * r + r * pooled * pooled * c * 4
@@ -1790,6 +1725,8 @@ def c4_bwd_bound(shape, rois, pooled, out_dtype):
     """The C4 backward's least time: g and rois read once, the gradient map
     written once, or its operations."""
     import torch
+
+    from detectorch_tpu_torch.tools.measure import roofline
 
     b, h, w, c = shape
     r = rois.shape[0] * rois.shape[1]
@@ -1903,58 +1840,38 @@ def phase_c4_kernels(device, batch=BATCH, height=HEIGHT, width=WIDTH, channels=1
             "bwd_err": max_bwd}
 
 
-def phase_c4_stages(device, params, cfg, batch=BATCH, height=HEIGHT, width=WIDTH,
-                    test_cfg=None):
-    """One C4 request split by stage, a synchronise after each: c4 body,
-    RPN + proposal NMS, box RoIAlign, res5 box head + predictors,
-    postprocess, mask branch."""
+def tool_stages(device, params, cfg, batch, height, width, test_cfg, names):
+    """One request of cfg through tools/profile_stages (CUDA events between
+    stages; the staged outputs held bitwise to the fused request's), on
+    phase 4's inputs, with adjacent stages merged under this script's
+    `names`. Returns ([(name, ms)], the tool's result, the inputs)."""
     import torch
 
     from detectorch_tpu_torch.config import TestConfig
-    from detectorch_tpu_torch.eval.postprocess import postprocess_detections
-    from detectorch_tpu_torch.models import heads as heads_mod
-    from detectorch_tpu_torch.models.detector import (
-        backbone_features,
-        blob_bounds,
-        box_head,
-        compute_dtype,
-        mask_branch,
-        roi_features,
-        rpn_proposals,
-    )
+    from detectorch_tpu_torch.tools.profile_stages import profile
 
-    test_cfg = test_cfg or TestConfig()
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    images, scale, orig_h, orig_w = _batch(gen, batch, height, width, device)
-    marks = []
+    inputs = _batch(gen, batch, height, width, device)
+    res = profile(params, cfg, test_cfg or TestConfig(), inputs, device, iters=1, echo=False)
+    merged = []
+    for name, ms, _ in res["stages"]:
+        name = names.get(name, name)
+        if merged and merged[-1][0] == name:
+            merged[-1] = (name, merged[-1][1] + ms)
+        else:
+            merged.append((name, ms))
+    return merged, res, inputs
 
-    def mark(name):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        marks.append((name, time.perf_counter()))
 
-    with torch.inference_mode():
-        mark("start")
-        c4 = backbone_features(params, cfg, images)
-        mark("c4 body")
-        im_h, im_w = blob_bounds(cfg, images.shape[1:3], scale, orig_h, orig_w)
-        props = rpn_proposals(params, cfg, c4, im_h, im_w, scale, {})
-        mark("rpn + proposal nms")
-        n = props.boxes.shape[1]
-        feats = roi_features(cfg, c4, props.boxes, cfg.roi_size)
-        mark("box roialign")
-        box = box_head(params, cfg, feats.reshape(batch * n, *feats.shape[2:]))
-        del feats
-        cls, deltas = heads_mod.box_predictors(params, box, dtype=compute_dtype(cfg))
-        mark("res5 box head")
-        dets = postprocess_detections(cls.reshape(batch, n, -1), deltas.reshape(batch, n, -1),
-                                      props.boxes, props.valid, scale, orig_h, orig_w,
-                                      test_cfg, cfg.num_classes)
-        mark("postprocess")
-        mask_branch(params, cfg, c4, dets.boxes, dets.classes, scale)
-        mark("mask branch")
-    return [(name, (t - marks[i][1]) * 1e3) for i, (name, t) in enumerate(marks[1:])]
+def phase_c4_stages(device, params, cfg, batch=BATCH, height=HEIGHT, width=WIDTH,
+                    test_cfg=None):
+    """One C4 request split by stage: c4 body, RPN + proposal NMS, box
+    RoIAlign, res5 box head + predictors, postprocess, mask branch."""
+    names = {"backbone": "c4 body", "rpn + proposals": "rpn + proposal nms",
+             "box head": "res5 box head", "mask roialign": "mask branch",
+             "mask head": "mask branch"}
+    return tool_stages(device, params, cfg, batch, height, width, test_cfg, names)[0]
 
 
 def phase_c4(device, smi):
@@ -2014,65 +1931,15 @@ KP_EVAL_IMAGES, KP_EVAL_HW = 24, (480, 640)
 
 def phase_kp_stages(device, params, cfg, batch=BATCH, height=HEIGHT, width=WIDTH,
                     test_cfg=None):
-    """One keypoint request split by stage, a synchronise after each:
-    backbone + neck, RPN + proposals, box RoIAlign + fc6/fc7 + predictors,
-    postprocess, keypoint RoIAlign, keypoint trunk + deconv + upsample,
-    decode. Returns the stages and the keypoint call's RoIAlign inputs (the
-    pyramid and the (B, K, 4) scaled detection boxes)."""
-    import torch
-
-    from detectorch_tpu_torch.config import TestConfig
-    from detectorch_tpu_torch.eval.postprocess import postprocess_detections
-    from detectorch_tpu_torch.models import heads as heads_mod
-    from detectorch_tpu_torch.models.detector import (
-        backbone_features,
-        blob_bounds,
-        box_head,
-        compute_dtype,
-        roi_features,
-        rpn_proposals,
-    )
-    from detectorch_tpu_torch.ops.keypoints import heatmaps_to_keypoints
-
-    test_cfg = test_cfg or TestConfig()
-    kcfg = cfg.keypoint
-    gen = torch.Generator(device=device)
-    gen.manual_seed(1)
-    images, scale, orig_h, orig_w = _batch(gen, batch, height, width, device)
-    marks = []
-
-    def mark(name):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        marks.append((name, time.perf_counter()))
-
-    with torch.inference_mode():
-        mark("start")
-        feats = backbone_features(params, cfg, images)
-        mark("backbone + neck")
-        im_h, im_w = blob_bounds(cfg, images.shape[1:3], scale, orig_h, orig_w)
-        props = rpn_proposals(params, cfg, feats, im_h, im_w, scale, {})
-        mark("rpn + proposals")
-        n = props.boxes.shape[1]
-        box = box_head(params, cfg, roi_features(cfg, feats, props.boxes, cfg.roi_size)
-                       .reshape(batch * n, cfg.roi_size, cfg.roi_size, -1))
-        cls, deltas = heads_mod.box_predictors(params, box, dtype=compute_dtype(cfg))
-        mark("box roialign + fc6/fc7")
-        dets = postprocess_detections(cls.reshape(batch, n, -1), deltas.reshape(batch, n, -1),
-                                      props.boxes, props.valid, scale, orig_h, orig_w,
-                                      test_cfg, cfg.num_classes)
-        mark("postprocess")
-        kp_rois = dets.boxes * scale[:, None, None]
-        x = roi_features(cfg, feats, kp_rois, kcfg.roi_size)
-        mark("keypoint roialign")
-        heat = heads_mod.keypoint_head(
-            params, x.reshape(-1, kcfg.roi_size, kcfg.roi_size, x.shape[-1])
-            .to(compute_dtype(cfg)), kcfg.num_convs)
-        mark("keypoint trunk + deconv + upsample")
-        heatmaps_to_keypoints(heat, dets.boxes.reshape(-1, 4))
-        mark("decode")
-    stages = [(name, (t - marks[i][1]) * 1e3) for i, (name, t) in enumerate(marks[1:])]
-    return stages, (feats, kp_rois)
+    """One keypoint request split by stage: backbone + neck, RPN +
+    proposals, box RoIAlign + fc6/fc7 + predictors, postprocess, keypoint
+    RoIAlign, keypoint trunk + deconv + upsample, decode. Returns the stages
+    and the keypoint call's RoIAlign inputs (the pyramid and the (B, K, 4)
+    scaled detection boxes)."""
+    names = {"box roialign": "box roialign + fc6/fc7", "box head": "box roialign + fc6/fc7"}
+    stages, res, inputs = tool_stages(device, params, cfg, batch, height, width, test_cfg, names)
+    scale = inputs[1]
+    return stages, (res["feats"], res["outputs"].detections.boxes * scale[:, None, None])
 
 
 def fwd_call_row(feats, rois, cfg, what, tag, timing=True):
@@ -2358,6 +2225,7 @@ def e2e_setup(device, dtype, sizes=E2E_SIZES, height=HEIGHT, width=WIDTH, target
     import numpy as np
 
     from detectorch_tpu_torch.config import PRESETS, SamplerConfig, SolverConfig
+    from detectorch_tpu_torch.tools.profile_e2e_train import make_e2e_batch
 
     cfg = PRESETS[PRESET].replace(compute_dtype=dtype)
     batch = make_e2e_batch(np.random.RandomState(10), sizes, (height, width), target_size,
@@ -2641,7 +2509,8 @@ def parallel_rank(ref_path, eval_root, setup, infer_hw, eval_images, eval_test):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = par.default_device()
+    # the CPU only where there is no card (a rehearsal of the phase)
+    device = par.default_device() if torch.cuda.is_available() else torch.device("cpu")
     ref = torch.load(ref_path, map_location="cpu", weights_only=False)
     mesh = par.make_mesh(device=device)
     r, out = mesh.coords["data"], {"rank": mesh.rank, "device": str(device)}
@@ -3221,6 +3090,171 @@ def phase_production_ap(device, smi, plan=PAP_PLAN, images=None, tag="27 product
     return launches, {"seconds": seconds, "presets": summary}
 
 
+# --- the measurement tools (phase 28) -------------------------------------
+
+TOOL_ITERS = 5
+TOOL_EVAL_IMAGES = 48
+STAGE_ITERS = 3
+
+
+def counted(run):
+    """run() with both kernels' counts set to 0 just before it; returns
+    (its result, the counts read just after)."""
+    from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
+    from detectorch_tpu_torch.tools.measure import launches
+
+    roi_align_fwd.launches = roi_align_bwd.launches = 0
+    out = run()
+    return out, launches()
+
+
+def phase_tools(device, smi, infer_rate, tag="28 tools"):
+    """Phase 28: the port's measurement tools in process, on the card, at
+    the sizes of phases 4, 7 and 10: tools/bench at batch 8 (inference and
+    BENCH_MODE=train), tools/profile_e2e_train with masks, tools/bench_e2e
+    on 48 synthetic images at batch 8, tools/profile_stages on the flagship
+    and on C4, then tools/profile_mfu (the matmul rate, the FLOPs of the
+    flagship request, of the Fast R-CNN step and of the e2e steps, and the
+    MFU of phase 4's and this phase's rates and steps). Checks each tool's
+    launches against the kernel table, every rate finite and above 0, the
+    staged requests equal to the fused ones (inside profile_stages), the
+    flagship's count equal to its closed form plus roi_align_work's
+    operations, and vs_baseline null. Returns (launches by tool, the tools'
+    lines)."""
+    import math
+    import tempfile
+
+    import torch
+
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
+    from detectorch_tpu_torch.config import PRESETS, TestConfig
+    from detectorch_tpu_torch.tools import (
+        bench,
+        bench_e2e,
+        profile_e2e_train,
+        profile_mfu,
+        profile_stages,
+    )
+
+    t_phase = time.perf_counter()
+    per_batch = {"BENCH_PER_DEV_BATCH": str(BATCH), "BENCH_ITERS": str(TOOL_ITERS)}
+    launches, lines = {}, {}
+
+    def timed(name, run):
+        t0 = time.perf_counter()
+        out, launches[name] = counted(run)
+        log(f"[{tag}] {name}: {time.perf_counter() - t0:.1f} s of command, launches in the "
+            f"call {launches[name]}")
+        torch.cuda.empty_cache()
+        return out
+
+    def rate_ok(name, v):
+        check(v is not None and math.isfinite(v) and v > 0, f"{name}: rate {v}")
+
+    # inference: a build request, a warm one, then TOOL_ITERS timed, 2 launches each
+    b = timed("bench", lambda: bench.main(per_batch))
+    check(b["vs_baseline"] is None, "bench: vs_baseline is not null")
+    check(b["launches"] == {"roi_align_fwd": 2 * TOOL_ITERS, "roi_align_bwd": 0},
+          f"bench: {b['launches']} in {TOOL_ITERS} requests, expected 2 forward each")
+    rate_ok("bench", b["value"])
+    # the Fast R-CNN step: 1 forward (no mask branch) and 1 backward a step
+    t = timed("bench_train", lambda: bench.main({**per_batch, "BENCH_MODE": "train"}))
+    check(t["vs_baseline"] is None, "bench train: vs_baseline is not null")
+    check(t["launches"] == {"roi_align_fwd": TOOL_ITERS, "roi_align_bwd": TOOL_ITERS},
+          f"bench train: {t['launches']} in {TOOL_ITERS} steps, expected 1 + 1 each")
+    rate_ok("bench train", t["value"])
+    # the e2e Mask R-CNN step: 2 forward and 2 backward a step
+    e = timed("profile_e2e_train", lambda: profile_e2e_train.main(
+        {"PROFILE_E2E_MASKS": "1", "PROFILE_E2E_ITERS": str(TOOL_ITERS)}))
+    check(e["launches"] == {"roi_align_fwd": 2 * TOOL_ITERS, "roi_align_bwd": 2 * TOOL_ITERS},
+          f"profile_e2e_train: {e['launches']} in {TOOL_ITERS} steps, expected 2 + 2 each")
+    check(math.isfinite(e["loss"]), f"profile_e2e_train: loss {e['loss']}")
+    rate_ok("profile_e2e_train", e["images_per_sec"])
+    # eval: 2 forward launches a batch
+    with tempfile.TemporaryDirectory() as root:
+        ev = timed("bench_e2e", lambda: bench_e2e.main(
+            ["--n", str(TOOL_EVAL_IMAGES), "--batch", str(BATCH), "--root", root]))
+    check(ev["launches"] == {"roi_align_fwd": 2 * ev["batches"], "roi_align_bwd": 0},
+          f"bench_e2e: {ev['launches']} in {ev['batches']} batches, expected 2 forward each")
+    check(ev["detections"] > 0 and ev["images"] == TOOL_EVAL_IMAGES, f"bench_e2e: {ev}")
+    rate_ok("bench_e2e", ev["images_per_sec"])
+    # stages: the flagship through the CLI, C4 with c4_weights
+    stage_lines = {}
+    for preset in (PRESET, C4_PRESET):
+        def run_stages(preset=preset):
+            if preset == PRESET:
+                return profile_stages.main(["--iters", str(STAGE_ITERS)])
+            cfg = PRESETS[preset]
+            params = params_to_device(params_from_jax(c4_weights(cfg)), device)
+            inputs = tuple(torch.from_numpy(a).to(device)
+                           for a in bench.inference_inputs(BATCH, HEIGHT, WIDTH))
+            return profile_stages.profile(params, cfg, TestConfig(), inputs, device,
+                                          iters=STAGE_ITERS)
+
+        res = timed(f"profile_stages {preset}", run_stages)
+        per_request = {k: sum(c[k] for _, _, c in res["stages"])
+                       for k in ("roi_align_fwd", "roi_align_bwd")}
+        check(per_request == {"roi_align_fwd": 2, "roi_align_bwd": 0},
+              f"profile_stages {preset}: {per_request} a request, expected 2 forward")
+        rate_ok(f"profile_stages {preset}", res["request_ms"])
+        stage_lines[preset] = {"stages": [(n, ms) for n, ms, _ in res["stages"]],
+                               "launches_per_request": per_request,
+                               "request_ms": res["request_ms"],
+                               "stage_sum_ms": res["stage_sum_ms"]}
+        log(f"[{tag}] {preset} in stages (ms): "
+            + ", ".join(f"{n} {ms:.1f}" for n, ms, _ in res["stages"])
+            + f"; sum {res['stage_sum_ms']:.1f}, fused request {res['request_ms']:.1f}; the "
+              "staged outputs equal the fused request's bit for bit")
+        del res
+    launches["profile_stages"] = launches.pop(f"profile_stages {PRESET}")
+    launches["profile_stages_c4"] = launches.pop(f"profile_stages {C4_PRESET}")
+    # FLOPs and MFU
+    m = timed("profile_mfu", lambda: profile_mfu.run(
+        device, BATCH, HEIGHT, WIDTH, steps=True,
+        rates={"phase 4": infer_rate, "phase 28 bench": b["value"]},
+        step_ms={"fast_rcnn_train_step": sum(t["ms"]) / len(t["ms"]),
+                 PRESET: e["ms_per_step"]}))
+    # whole calls, warm-ups included: a build and a warm request then the
+    # timed ones; a first step then the timed ones; per preset the fused
+    # reference, iters + 1 staged and iters fused requests; the counts of
+    # one request and of the Fast R-CNN, e2e Faster, Mask and Keypoint steps
+    expected = {"bench": (2 * (TOOL_ITERS + 2), 0), "bench_train": (TOOL_ITERS + 1,) * 2,
+                "profile_e2e_train": (2 * (TOOL_ITERS + 1),) * 2,
+                "profile_stages": (2 * (2 * STAGE_ITERS + 2), 0),
+                "profile_stages_c4": (2 * (2 * STAGE_ITERS + 2), 0),
+                "profile_mfu": (2 + 1 + 1 + 2 + 2, 1 + 1 + 2 + 2)}
+    for name, (fwd, bwd) in expected.items():
+        check(launches[name] == {"roi_align_fwd": fwd, "roi_align_bwd": bwd},
+              f"{name}: {launches[name]} in the whole call, expected {fwd} + {bwd}")
+    flag = m["flops"][0]
+    cfg = PRESETS[PRESET]
+    closed = profile_mfu.inference_closed_form(cfg, TestConfig(), BATCH, HEIGHT, WIDTH)
+    count = flag["count"]
+    check(count["layers"] == closed and flag["flops"] == closed + count["roi_align"]["fwd"],
+          f"flagship FLOPs {flag['flops']} != closed form {closed} + RoIAlign "
+          f"{count['roi_align']['fwd']}")
+    check(count["roi_align_calls"] == {"fwd": 2, "bwd": 0}, f"counted calls {count}")
+    for row in m["matmul"] + m["mfu"]:
+        rate_ok("profile_mfu", row.get("tflops", row.get("achieved_tflops")))
+    for row in m["flops"]:
+        check(row["flops"] > 0, f"profile_mfu: {row['preset']} counted no FLOPs")
+    log(f"[{tag}] flagship request {flag['flops_per_image'] / 1e9:.2f} GFLOP/image (conv and "
+        f"linear {count['layers'] / BATCH / 1e9:.2f}, equal to the closed form; RoIAlign "
+        f"{count['roi_align']['fwd'] / BATCH / 1e9:.3f}); steps: "
+        + ", ".join(f"{r['preset']} {r['flops'] / 1e12:.3f} TFLOP" for r in m["flops"][1:])
+        + "; MFU: " + ", ".join(
+            f"{r.get('rate_from', r['preset'])} {r['mfu']:.4f} ({r['share_of_sustained']} "
+            "of the matmul rate)" for r in m["mfu"]))
+    log(f"[{tag}] phase 28: {time.perf_counter() - t_phase:.1f} s on {smi}")
+    lines.update(bench=b, bench_train=t, profile_e2e_train=e, bench_e2e=ev,
+                 profile_stages=stage_lines,
+                 profile_mfu={"matmul": m["matmul"], "mfu": m["mfu"],
+                              "flops": [{k: v for k, v in r.items() if k != "count"}
+                                        for r in m["flops"]]},
+                 seconds=time.perf_counter() - t_phase)
+    return launches, lines
+
+
 def per_kernel(launches, kernel):
     """One kernel's counts of a nested {path: counts} tree."""
     if isinstance(launches, dict) and kernel in launches:
@@ -3269,6 +3303,8 @@ def main() -> int:
     del infer_params, kept
     torch.cuda.empty_cache()
     pap_launches, pap = phase_production_ap(device, smi)
+    torch.cuda.empty_cache()
+    tool_launches, tool_lines = phase_tools(device, smi, infer_rate)
     parallel_launches = {
         "world1_nccl_e2e_training": world1["launches"],
         "world2_e2e_training": [r["step_launches"] for r in world2],
@@ -3297,7 +3333,8 @@ def main() -> int:
                              **{k: v["roi_align_fwd"] for k, v in kp["launches"].items()},
                              **per_kernel(parallel_launches, "roi_align_fwd"),
                              **per_kernel(demo_launches, "roi_align_fwd"),
-                             "production_ap": per_kernel(pap_launches, "roi_align_fwd")},
+                             "production_ap": per_kernel(pap_launches, "roi_align_fwd"),
+                             **per_kernel(tool_launches, "roi_align_fwd")},
         "max_abs_err": summary["max_abs_err"],
         "c4_max_abs_err": c4["kernels"]["fwd_err"],
         "keypoint_max_abs_err": max(r["max_abs_err"] for r in kp["calls"]["fwd"]),
@@ -3320,7 +3357,8 @@ def main() -> int:
                              **{k: v["roi_align_bwd"] for k, v in kp["launches"].items()
                                 if "training" in k},
                              **per_kernel(parallel_launches, "roi_align_bwd"),
-                             "production_ap": per_kernel(pap_launches, "roi_align_bwd")},
+                             "production_ap": per_kernel(pap_launches, "roi_align_bwd"),
+                             **per_kernel(tool_launches, "roi_align_bwd")},
         "max_abs_err": bwd_summary["max_abs_err"],
         "c4_max_abs_err": c4["kernels"]["bwd_err"],
         "keypoint_max_abs_err": max(r["max_abs_err"] for r in kp["calls"]["bwd"]),
@@ -3342,7 +3380,7 @@ def main() -> int:
     }
     log(smi)
     log(json.dumps({"kernels": kernels, "parallel": parallel, "rle_native": rle_times,
-                    "demo": demo_ms, "production_ap": pap}))
+                    "demo": demo_ms, "production_ap": pap, "bench": tool_lines}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -213,55 +213,76 @@ def blob_bounds(cfg: ModelConfig, image_hw, im_scale, orig_h, orig_w):
     return im_h, im_w
 
 
+def box_scores(params, cfg: ModelConfig, roi_feats, mesh=None):
+    """The box head and predictors on (B, N, S, S, C) roi features:
+    (cls_scores (B, N, C) probabilities, bbox_deltas (B, N, 4C))."""
+    bsz, n = roi_feats.shape[:2]
+    box_feats = box_head(params, cfg, roi_feats.reshape(bsz * n, *roi_feats.shape[2:]), mesh)
+    cls_scores, bbox_deltas = heads_mod.box_predictors(params, box_feats,
+                                                       dtype=compute_dtype(cfg))
+    return cls_scores.reshape(bsz, n, -1), bbox_deltas.reshape(bsz, n, -1)
+
+
 def box_branch(params, cfg: ModelConfig, test_cfg: TestConfig, feats, rois,
                roi_valid, im_scale, orig_h, orig_w, roi_align=None, mesh=None):
     """RoIAlign (``roi_features``) -> box head -> predictors -> per-class
     NMS + cap. feats: the pyramid (FPN) or c4 (C4). Returns (cls_scores
     (B,N,C), bbox_deltas (B,N,4C), Detections)."""
-    bsz, n = rois.shape[:2]
-    roi_feats = roi_features(cfg, feats, rois, cfg.roi_size, roi_align)
-    box_feats = box_head(params, cfg, roi_feats.reshape(bsz * n, *roi_feats.shape[2:]), mesh)
-    del roi_feats
-    cls_scores, bbox_deltas = heads_mod.box_predictors(params, box_feats,
-                                                       dtype=compute_dtype(cfg))
-    cls_scores = cls_scores.reshape(bsz, n, -1)
-    bbox_deltas = bbox_deltas.reshape(bsz, n, -1)
+    cls_scores, bbox_deltas = box_scores(
+        params, cfg, roi_features(cfg, feats, rois, cfg.roi_size, roi_align), mesh)
     dets = postprocess_detections(cls_scores, bbox_deltas, rois, roi_valid, im_scale,
                                   orig_h, orig_w, test_cfg, cfg.num_classes)
     return cls_scores, bbox_deltas, dets
 
 
-def mask_branch(params, cfg: ModelConfig, feats, det_boxes, det_classes, im_scale,
-                roi_align=None):
-    """RoIAlign 14x14 on the detections (original-image boxes (B, K, 4)) ->
-    mask head -> class-gathered (B, K, M, M) fp32 probabilities."""
-    bsz, k = det_boxes.shape[:2]
-    mask_rois = det_boxes * im_scale[:, None, None]
-    msize = cfg.mask.roi_size
-    x = roi_features(cfg, feats, mask_rois, msize, roi_align)
-    x = x.reshape(bsz * k, msize, msize, -1).to(compute_dtype(cfg))
+def detection_roi_features(cfg: ModelConfig, feats, det_boxes, im_scale, size: int,
+                           roi_align=None):
+    """RoIAlign (size x size) on the detections (original-image boxes
+    (B, K, 4), scaled by im_scale): (B*K, size, size, C) in the compute
+    dtype, the mask or keypoint head's input."""
+    x = roi_features(cfg, feats, det_boxes * im_scale[:, None, None], size, roi_align)
+    return x.reshape(-1, size, size, x.shape[-1]).to(compute_dtype(cfg))
+
+
+def mask_probs(params, cfg: ModelConfig, x, det_classes):
+    """The mask head on ``detection_roi_features`` -> class-gathered
+    (B, K, M, M) fp32 probabilities; det_classes (B, K)."""
+    bsz, k = det_classes.shape[:2]
     probs = heads_mod.mask_head(params, x, cfg.mask.head_type, cfg.arch)
     m = probs.shape[1]
     cls = det_classes.reshape(bsz * k, 1, 1, 1).expand(-1, m, m, 1)
     return torch.gather(probs, 3, cls)[..., 0].reshape(bsz, k, m, m)
 
 
+def mask_branch(params, cfg: ModelConfig, feats, det_boxes, det_classes, im_scale,
+                roi_align=None):
+    """RoIAlign 14x14 on the detections (original-image boxes (B, K, 4)) ->
+    mask head -> class-gathered (B, K, M, M) fp32 probabilities."""
+    x = detection_roi_features(cfg, feats, det_boxes, im_scale, cfg.mask.roi_size, roi_align)
+    return mask_probs(params, cfg, x, det_classes)
+
+
 def keypoint_heatmaps(params, cfg: ModelConfig, feats, det_boxes, im_scale, roi_align=None):
     """RoIAlign (cfg.keypoint.roi_size) on the detections (original-image
     boxes (B, K, 4)) -> keypoint head: (B*K, S, S, P) fp32 heatmap logits."""
-    size = cfg.keypoint.roi_size
-    x = roi_features(cfg, feats, det_boxes * im_scale[:, None, None], size, roi_align)
-    x = x.reshape(-1, size, size, x.shape[-1]).to(compute_dtype(cfg))
+    x = detection_roi_features(cfg, feats, det_boxes, im_scale, cfg.keypoint.roi_size,
+                               roi_align)
     return heads_mod.keypoint_head(params, x, cfg.keypoint.num_convs)
+
+
+def decode_keypoints(heatmaps, det_boxes):
+    """(B*K, S, S, P) heatmap logits of the detections (B, K, 4) -> (B, K,
+    P, 4) fp32 [x, y, logit, prob] in original-image coords."""
+    bsz, k = det_boxes.shape[:2]
+    kps = kp_ops.heatmaps_to_keypoints(heatmaps, det_boxes.reshape(bsz * k, 4))
+    return kps.reshape(bsz, k, *kps.shape[1:])
 
 
 def keypoint_branch(params, cfg: ModelConfig, feats, det_boxes, im_scale, roi_align=None):
     """``keypoint_heatmaps`` decoded: (B, K, P, 4) fp32 [x, y, logit, prob]
     in original-image coords."""
-    bsz, k = det_boxes.shape[:2]
-    heatmaps = keypoint_heatmaps(params, cfg, feats, det_boxes, im_scale, roi_align)
-    kps = kp_ops.heatmaps_to_keypoints(heatmaps, det_boxes.reshape(bsz * k, 4))
-    return kps.reshape(bsz, k, *kps.shape[1:])
+    return decode_keypoints(
+        keypoint_heatmaps(params, cfg, feats, det_boxes, im_scale, roi_align), det_boxes)
 
 
 def _check_ported(cfg: ModelConfig):

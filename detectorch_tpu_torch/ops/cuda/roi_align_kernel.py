@@ -105,7 +105,11 @@ def build_library(source: Path) -> Tuple[Path, str]:
 class _Kernel:
     """A kernel's library, entry point and launch count. ``launches`` counts
     kernel launches (CPU calls that run the plain version do not count);
-    ``build_log`` keeps nvcc's ``-Xptxas -v`` report of the last build."""
+    ``build_log`` keeps nvcc's ``-Xptxas -v`` report of the last build.
+    ``observers`` are called with every call's geometry, on the CPU and on
+    the card: (level shapes, rois, batch_idx, levels, level_scales,
+    pooled_h, pooled_w, sampling_ratio, max_grid) (the FLOP count of
+    ``tools/measure`` reads them)."""
 
     source: Path
     symbol: str
@@ -114,7 +118,12 @@ class _Kernel:
     def __init__(self):
         self.launches = 0
         self.build_log = ""
+        self.observers = []
         self._fn = None
+
+    def observe(self, level_shapes, *geometry):
+        for fn in self.observers:
+            fn([tuple(int(d) for d in s) for s in level_shapes], *geometry)
 
     def build(self) -> Path:
         """Compile (if no library for this source exists yet) and load."""
@@ -195,6 +204,8 @@ class RoIAlignForward(_Kernel):
         (R, 4) fp32 image-space xyxy; batch_idx and levels (R,) int32.
         """
         check_precision(fwd_precision)
+        self.observe([f.shape for f in feature_list], rois, batch_idx, levels, level_scales,
+                     pooled_h, pooled_w, sampling_ratio, max_grid)
         if _one_device([*feature_list, rois, batch_idx, levels], "RoIAlign").type == "cpu":
             return plain.multilevel_roi_align(
                 feature_list, rois, batch_idx, levels, level_scales,
@@ -435,6 +446,8 @@ class RoIAlignBackward(_Kernel):
         feature_shapes: per level (B, H_l, W_l, C); rois (R, 4) fp32;
         batch_idx and levels (R,) int32. Summed in fp32, rounded once.
         """
+        self.observe(feature_shapes, rois, batch_idx, levels, level_scales, pooled_h, pooled_w,
+                     sampling_ratio, max_grid)
         if _one_device([g, rois, batch_idx, levels], "RoIAlign backward").type == "cpu":
             return plain.multilevel_roi_align_backward(
                 g, feature_shapes, rois, batch_idx, levels, level_scales,
@@ -501,6 +514,9 @@ def roi_align_c4(features, rois, pooled_h: int, pooled_w: int, spatial_scale: fl
     image-space xyxy -> (B, N, PH, PW, C) fp32; one forward kernel launch
     for the whole batch on CUDA tensors, ``roi_align_matmul`` on CPU ones."""
     if _one_device([features, rois], "C4 RoIAlign").type == "cpu":
+        if roi_align_fwd.observers:
+            roi_align_fwd.observe([features.shape], *_one_level(rois), (spatial_scale,),
+                                  pooled_h, pooled_w, sampling_ratio, max_grid)
         return plain.roi_align_matmul(features, rois, pooled_h, pooled_w, spatial_scale,
                                       sampling_ratio, max_grid)
     bsz, n = rois.shape[:2]
@@ -517,6 +533,9 @@ def roi_align_c4_bwd(g, feature_shape, rois, pooled_h: int, pooled_w: int,
     backward kernel launch on CUDA tensors, ``roi_align_matmul_backward``
     on CPU ones."""
     if _one_device([g, rois], "C4 RoIAlign backward").type == "cpu":
+        if roi_align_bwd.observers:
+            roi_align_bwd.observe([feature_shape], *_one_level(rois), (spatial_scale,),
+                                  pooled_h, pooled_w, sampling_ratio, max_grid)
         return plain.roi_align_matmul_backward(g, feature_shape, rois, pooled_h, pooled_w,
                                                spatial_scale, sampling_ratio, max_grid,
                                                out_dtype=out_dtype)

@@ -102,17 +102,21 @@ class Mesh:
 
 
 def default_device() -> torch.device:
-    """The current CUDA device where there is one, else the CPU."""
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    """The current CUDA device. Without a card this raises: a caller that
+    means the CPU says so (``make_mesh(device="cpu")``), and nothing falls
+    back to it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device (torch.cuda.is_available() is False); pass "
+                           "device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def make_mesh(data_parallel: Optional[int] = None, model_parallel: int = 1,
               device=None) -> Mesh:
     """The mesh over every rank of the process group: ('data', 'model'),
     `data_parallel` defaulting to world / model_parallel. Without a process
-    group, the 1x1 mesh. `device` defaults to ``default_device()``."""
+    group, the 1x1 mesh. `device` defaults to ``default_device()``, which
+    raises without a card."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if data_parallel is None:
         data_parallel = world // model_parallel

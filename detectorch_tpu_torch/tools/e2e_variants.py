@@ -1,11 +1,12 @@
 """Time parts of the e2e training step on one CUDA card, on phase 10's inputs.
 
-    python3 -m detectorch_tpu_torch.tools.e2e_variants   # from the root of a checkout
+    python3 -m detectorch_tpu_torch.tools.e2e_variants
 
-On the batch of ``chip_smoke.py``'s phase 10 (``make_e2e_batch``: 8
-COCO-sized uint8 images resized into 832x1344, 3-20 gts in 128 slots;
-init_params(seed 0), bf16, RPN 12000 -> 2000 per level), each timed by CUDA
-events after a warm-up, with the card's name and power limit:
+On the batch of ``chip_smoke.py``'s phase 10
+(``tools/profile_e2e_train.make_e2e_batch``: 8 COCO-sized uint8 images
+resized into 832x1344, 3-20 gts in 128 slots; init_params(seed 0), bf16,
+RPN 12000 -> 2000 per level), each timed by CUDA events after a warm-up,
+with the card's name and power limit:
 
   * ``rpn_targets`` as the step runs it (on the gt slots up to the last
     valid one) and on all 128 slots: ms and the peak memory it adds;
@@ -22,7 +23,6 @@ Prints one JSON line per measurement.
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 
@@ -36,9 +36,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("e2e_variants: needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.getcwd())
-    import chip_smoke as cs
-
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.config import PRESETS
     from detectorch_tpu_torch.models import rpn as rpn_mod
@@ -57,20 +54,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
-    cfg = PRESETS[cs.PRESET]
+    cfg = PRESETS[pe.preset_of(masks=True, keypoints=False)]
     params = params_to_device(params_from_jax(init_params(cfg, seed=0)), dev)
-    b = cs.make_e2e_batch(np.random.RandomState(10), cs.E2E_SIZES, (cs.HEIGHT, cs.WIDTH), 800,
+    b = pe.make_e2e_batch(np.random.RandomState(10), pe.E2E_SIZES, pe.BLOB_HW, 800,
                           1333, (3, 20), dev)
     info = b["meta"][:, 2:5]
     bsz = b["raw"].shape[0]
     with torch.no_grad():
-        pyramid = backbone_features(params, cfg, device_images(b, (cs.HEIGHT, cs.WIDTH)))
+        pyramid = backbone_features(params, cfg, device_images(b, pe.BLOB_HW))
         feats, levels = rpn_feature_levels(cfg, pyramid)
         heads = [rpn_mod.rpn_head(params, f, prefix="_fpn2", return_logits=True) for f in feats]
     cache = {}
     anchors = torch.cat([level_anchors(cfg, lg.shape[1], lg.shape[2], lvl, dev, cache)
                          for (lg, _), lvl in zip(heads, levels)])
-    u = e2e.torch_uniforms(0)(0, bsz, anchors.shape[0], cs.TRAIN_POST + 128, dev)
+    u = e2e.torch_uniforms(0)(0, bsz, anchors.shape[0], pe.TRAIN_POST + 128, dev)
 
     def emit(what, **kw):
         print(json.dumps({"what": what, "card": card, **kw}), flush=True)
@@ -107,7 +104,7 @@ def main() -> int:
 
     def proposals():
         return fpn_proposals(cfg, probs, deltas, levels, info[:, 0], info[:, 1], info[:, 2],
-                             cs.TRAIN_PRE, cs.TRAIN_POST, cache)
+                             pe.TRAIN_PRE, pe.TRAIN_POST, cache)
 
     tests = []
     equal = torch.equal
@@ -121,19 +118,19 @@ def main() -> int:
         ms, gib = timed(proposals)
     finally:
         nms_mod.torch.equal = equal
-    emit("fpn_proposals", pre=cs.TRAIN_PRE, post=cs.TRAIN_POST, ms=ms, peak_added_gib=gib,
+    emit("fpn_proposals", pre=pe.TRAIN_PRE, post=pe.TRAIN_POST, ms=ms, peak_added_gib=gib,
          fixpoint_tests_per_call=len(tests) / (ITERS + 1))
 
     # the NMS's suppression passes alone, over its own sorted inputs
     boxes = []
     for p, lvl in zip(probs, levels):
-        k = min(cs.TRAIN_PRE, p[0].numel())
+        k = min(pe.TRAIN_PRE, p[0].numel())
         _, idx = nms_mod.topk_stable(p.reshape(bsz, -1), k)
         a = level_anchors(cfg, p.shape[1], p.shape[2], lvl, dev, cache)[idx]
-        boxes.append(torch.nn.functional.pad(a, (0, 0, 0, cs.TRAIN_PRE - k)))
-    boxes = torch.stack(boxes, 1).reshape(-1, cs.TRAIN_PRE, 4)
-    n = -(-cs.TRAIN_PRE // 128) * 128
-    boxes = torch.nn.functional.pad(boxes, (0, 0, 0, n - cs.TRAIN_PRE))
+        boxes.append(torch.nn.functional.pad(a, (0, 0, 0, pe.TRAIN_PRE - k)))
+    boxes = torch.stack(boxes, 1).reshape(-1, pe.TRAIN_PRE, 4)
+    n = -(-pe.TRAIN_PRE // 128) * 128
+    boxes = torch.nn.functional.pad(boxes, (0, 0, 0, n - pe.TRAIN_PRE))
 
     alive = torch.ones(boxes.shape[:2], dtype=torch.bool, device=dev)
 

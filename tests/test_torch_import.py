@@ -52,7 +52,9 @@ def test_port_imports_without_jax():
     for m in ("parallel.mesh", "parallel.launch", "parallel.dryrun", "tools.dryrun_multichip",
               "tools.multicard_check", "tools.demo", "eval.rle_native", "utils.vis",
               "utils.colormap", "utils.io", "utils.selective_search", "utils.debug",
-              "utils.profiling", "tools.probe_weights", "tools.production_ap"):
+              "utils.profiling", "tools.probe_weights", "tools.production_ap",
+              "tools.measure", "tools.bench", "tools.bench_e2e", "tools.profile_e2e_train",
+              "tools.profile_stages", "tools.profile_mfu"):
         assert f"detectorch_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n" + LEAK_CHECK)
@@ -395,6 +397,34 @@ assert [r["variant"] for r in rows] == ["fp32/plain (baseline)"] and rows[0]["bb
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_measurement_tools_run_without_jax():
+    # bench's default mode, profile_stages' CLI and profile_mfu's count
+    # against its closed form, on the CPU at a tiny size (small RPN counts,
+    # 4 detection slots, bench's bucket set to 64x64)
+    code = """
+import json, sys
+import detectorch_tpu_torch.config as config
+from detectorch_tpu_torch.tools import bench, profile_mfu, profile_stages
+
+preset = "e2e_mask_rcnn_R-50-FPN_2x"
+config.PRESETS[preset] = config.PRESETS[preset].replace(
+    compute_dtype="float32", rpn=config.RPNConfig(pre_nms_top_n=60, post_nms_top_n=8))
+small = config.TestConfig
+bench.TestConfig = profile_stages.TestConfig = profile_mfu.TestConfig = \
+    lambda **kw: small(detections_per_img=4, **kw)
+bench.HEIGHT = bench.WIDTH = 64
+line = bench.main({"BENCH_DEVICE": "cpu", "BENCH_PER_DEV_BATCH": "1", "BENCH_ITERS": "1"})
+assert line["vs_baseline"] is None and line["device"] == "cpu", line
+res = profile_stages.main(["--device", "cpu", "--batch", "1", "--iters", "1"])
+assert [s[0] for s in res["stages"]][-2:] == ["mask roialign", "mask head"]
+rows = profile_mfu.main(["--device", "cpu", "--batch", "1"])
+assert rows["matmul"] == [] and rows["flops"][0]["closed_form_equal"]
+""" + LEAK_CHECK
+    # the Tier-1 command's six workers share the cores: one torch thread
+    proc = _python(["-c", code], cwd=REPO, env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_package_data_ships_every_port_source():
     # an installed copy builds the kernels and the native RLE from these
     import fnmatch
@@ -420,7 +450,9 @@ def test_no_jax_import_in_port_sources():
                 "tools/dryrun_multichip.py", "tools/multicard_check.py", "tools/demo.py",
                 "eval/rle_native.py", "utils/vis.py", "utils/colormap.py", "utils/io.py",
                 "utils/selective_search.py", "utils/debug.py", "utils/profiling.py",
-                "tools/probe_weights.py", "tools/production_ap.py"):
+                "tools/probe_weights.py", "tools/production_ap.py", "tools/measure.py",
+                "tools/bench.py", "tools/bench_e2e.py", "tools/profile_e2e_train.py",
+                "tools/profile_stages.py", "tools/profile_mfu.py"):
         assert os.path.join(REPO, "detectorch_tpu_torch", rel) in paths, rel
     # nor the repository's tests (the AP harness, the mirror) from the package
     tests_import = re.compile(r"^\s*(import|from) tests(\.|\s|$)", re.M)
