@@ -1,0 +1,7 @@
+"""Mean ms of a request's stage 'postprocess': the per-class NMS and the
+cap. CUDA events between the port's stage functions, the host never
+waiting between them (harness/program.staged_request)."""
+
+
+def read(layer):
+    return layer["stages_ms"].get("postprocess")
