@@ -44,6 +44,7 @@ from detectorch_tpu_torch.ops.cuda.roi_align_kernel import (
 )
 from detectorch_tpu_torch.ops.fpn_levels import map_rois_to_fpn_levels
 from detectorch_tpu_torch.ops.roi_align import check_matmul_precision
+from detectorch_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -227,11 +228,14 @@ def box_branch(params, cfg: ModelConfig, test_cfg: TestConfig, feats, rois,
                roi_valid, im_scale, orig_h, orig_w, roi_align=None, mesh=None):
     """RoIAlign (``roi_features``) -> box head -> predictors -> per-class
     NMS + cap. feats: the pyramid (FPN) or c4 (C4). Returns (cls_scores
-    (B,N,C), bbox_deltas (B,N,4C), Detections)."""
-    cls_scores, bbox_deltas = box_scores(
-        params, cfg, roi_features(cfg, feats, rois, cfg.roi_size, roi_align), mesh)
-    dets = postprocess_detections(cls_scores, bbox_deltas, rois, roi_valid, im_scale,
-                                  orig_h, orig_w, test_cfg, cfg.num_classes)
+    (B,N,C), bbox_deltas (B,N,4C), Detections). Spans ``box_head`` and
+    ``postprocess`` (``utils.profiling.span``)."""
+    with span("box_head"):
+        cls_scores, bbox_deltas = box_scores(
+            params, cfg, roi_features(cfg, feats, rois, cfg.roi_size, roi_align), mesh)
+    with span("postprocess"):
+        dets = postprocess_detections(cls_scores, bbox_deltas, rois, roi_valid, im_scale,
+                                      orig_h, orig_w, test_cfg, cfg.num_classes)
     return cls_scores, bbox_deltas, dets
 
 
@@ -309,17 +313,25 @@ def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=None, me
     (FPN) or ``roi_align_matmul`` (C4) only to compare the two. `mesh`
     (``parallel.mesh``) runs fc6/fc7 column-parallel where params hold its
     model rows; the batch is whatever rows the caller passes.
+
+    Under a ``torch.profiler``, each call is a ``request`` span holding the
+    spans ``backbone``, ``proposals`` (RPN mode), ``box_head``,
+    ``postprocess`` and ``mask`` (mask presets); ``utils.profiling.span``.
     """
     _check_ported(cfg)
     anchor_cache: Dict = {}
 
     @torch.inference_mode()
+    @span("request")
     def forward(params, images, im_scale, orig_h, orig_w, proposals=None,
                 proposals_valid=None) -> ModelOutputs:
-        feats = backbone_features(params, cfg, images)
+        with span("backbone"):
+            feats = backbone_features(params, cfg, images)
         if cfg.use_rpn:
-            im_h, im_w = blob_bounds(cfg, images.shape[1:3], im_scale, orig_h, orig_w)
-            props = rpn_proposals(params, cfg, feats, im_h, im_w, im_scale, anchor_cache)
+            with span("proposals"):
+                im_h, im_w = blob_bounds(cfg, images.shape[1:3], im_scale, orig_h, orig_w)
+                props = rpn_proposals(params, cfg, feats, im_h, im_w, im_scale,
+                                      anchor_cache)
             rois, roi_valid = props.boxes, props.valid
         else:
             if proposals is None:
@@ -332,8 +344,9 @@ def make_inference_fn(cfg: ModelConfig, test_cfg: TestConfig, roi_align=None, me
             roi_align, mesh)
         masks = keypoints = None
         if cfg.use_mask:
-            masks = mask_branch(params, cfg, feats, dets.boxes, dets.classes, im_scale,
-                                roi_align)
+            with span("mask"):
+                masks = mask_branch(params, cfg, feats, dets.boxes, dets.classes, im_scale,
+                                    roi_align)
         if cfg.keypoint is not None:
             keypoints = keypoint_branch(params, cfg, feats, dets.boxes, im_scale, roi_align)
         exact = torch.ones(images.shape[0], dtype=torch.bool, device=images.device)

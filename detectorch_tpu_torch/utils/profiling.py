@@ -5,16 +5,28 @@ The port's counterpart of ``detectorch_tpu/utils/profiling.py``:
     activities when a card is present) that writes a Chrome / Perfetto
     trace file under `logdir`, as ``jax.profiler`` writes its capture there;
   * `device_timer` — sustained seconds per call of a function whose work
-    runs asynchronously on a card, waiting for each call's work to finish.
+    runs asynchronously on a card, waiting for each call's work to finish;
+  * `span(name)` — a layer span of the program (a context manager and a
+    decorator): while a ``torch.profiler`` records, a ``record_function``
+    named ``detectorch::<name>``, in the same Chrome trace as the kernels
+    and on their clock; otherwise nothing but the check. So any `trace`
+    capture, and any other ``torch.profiler`` around the program, shows the
+    layer spans of each request: ``detectorch::request`` around the
+    inference forward (``models/detector.make_inference_fn``), and inside it
+    ``backbone``, ``proposals`` (RPN mode only), ``box_head``,
+    ``postprocess`` and ``mask`` (mask presets only).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 
 import torch
+
+SPAN_PREFIX = "detectorch::"
 
 
 @contextlib.contextmanager
@@ -34,6 +46,41 @@ def trace(logdir: str):
         prof.stop()
         prof.export_chrome_trace(
             os.path.join(logdir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+
+
+class span:
+    """``with span("backbone"): ...`` or ``@span("backbone")``: a
+    ``torch.profiler.record_function("detectorch::backbone")`` while a
+    profiler records (checked on each entry), else nothing. Spans nest by
+    the host thread's stack, so each span's parent is the span around it."""
+
+    __slots__ = ("name", "_record")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._record = None
+
+    def __enter__(self):
+        if torch.autograd._profiler_enabled():
+            self._record = torch.profiler.record_function(SPAN_PREFIX + self.name)
+            self._record.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        record, self._record = self._record, None
+        if record is not None:
+            record.__exit__(*exc)
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with span(name):  # a span of its own per call
+                return fn(*args, **kwargs)
+
+        return spanned
 
 
 def _first_tensor(out):
