@@ -8,8 +8,8 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 Phases — each passes or the script exits non-zero:
 
   1. the device: nvidia-smi's name and power limit, torch's device name;
-  2. the build of both RoIAlign kernels from csrc/ (one nvcc each, started
-     together), with its time;
+  2. the build of both RoIAlign kernels and the NMS kernel from csrc/ (one
+     nvcc each, started together), with its time;
   3. the forward kernel against its plain PyTorch version on the card, at
      the inference and eval paths' shapes (batch 8 pyramids at 832x1344 and
      at 1344x832, C = 256; 1000 rois per image at 7x7 and 108 at 14x14),
@@ -180,13 +180,29 @@ Phases — each passes or the script exits non-zero:
      phase's rates and steps; every rate finite and above 0, vs_baseline
      null. Phases 13 and 17 split their requests by stage through
      tools/profile_stages too.
+ 29. the NMS kernel (csrc/nms.cu) at the main path's three NMS shapes at
+     batch 8 (C4's proposals, 8 rows of 6000 at 0.7 into 1000; FPN's, 40
+     rows of 1000 at 0.7 into 1000; the per-class NMS, 640 rows of 1000 at
+     0.5 into 108), on proposal-like boxes: keep_idx and keep_valid equal
+     to batched_nms_blocked's bit for bit, 2 launches a call, the call's
+     time, each stage's (the profiler's), the mask's bound, the blocked
+     version's time and torchvision's batched_nms where installed; then an
+     FPN and a C4 request at batch 8 (score_thresh 0) equal in every output
+     to the same request with the blocked version forced, 4 launches each.
 
-The line before the last is a JSON summary of the kernels (their times and
-bounds are those of the random bf16 7x7 call; "calls" lists every timed
+Every phase that counts the RoIAlign launches of a run sets the NMS
+kernel's count to 0 beside them and checks it too: 4 launches a request or
+eval batch (the proposal and the per-class call), 2 an e2e training step
+(the proposal call), none a Fast R-CNN step.
+
+The line before the last is a JSON summary of the kernels (the RoIAlign
+kernels' times and bounds are those of the random bf16 7x7 call, the NMS
+kernel's those of phase 29's FPN proposal call; "calls" lists every timed
 call, FPN, C4 and the keypoint calls; "launches" counts phase 10's three steps,
-"launches_by_path" each path's timed run, per rank for phases 23-25, the
-demo's counted run for "demo" and "demo_keypoint", and each row of phase 27
-by preset under "production_ap"), with phases 22-24's times under
+"launches_by_path" each path's timed run, per rank for phases 23-25 (the NMS
+kernel's for 23-24), the demo's counted run for "demo" and "demo_keypoint",
+and each row of phase 27 by preset under "production_ap", for the NMS kernel
+the whole phase), with phases 22-24's times under
 "parallel", the native RLE's under "rle_native", the demo's and
 device_timer's under "demo", phase 27's rows and seconds under
 "production_ap", and phase 28's tool lines under "bench" (its launch
@@ -416,6 +432,7 @@ def phase_build():
     """Both kernels (one nvcc each) and the native RLE (the host C++
     compiler), started together; returns the RLE library's build seconds."""
     from detectorch_tpu_torch.eval import rle_native
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
 
     def build_rle():
@@ -424,7 +441,7 @@ def phase_build():
         return rle_native.library.path, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    kernels = (roi_align_fwd, roi_align_bwd)
+    kernels = (roi_align_fwd, roi_align_bwd, batched_nms_kernel)
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         rle_build = pool.submit(build_rle)
         paths = list(pool.map(lambda k: k.build(), kernels))
@@ -575,6 +592,7 @@ def phase_main_path(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     from detectorch_tpu_torch.config import PRESETS, TestConfig
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.models.detector import init_params, make_inference_fn
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
 
     cfg = cfg or PRESETS[PRESET]
@@ -599,14 +617,15 @@ def phase_main_path(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     log(f"[{tag}] warm-up request: {time.perf_counter() - t0:.3f} s")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    roi_align_fwd.launches = 0
+    roi_align_fwd.launches = batched_nms_kernel.launches = 0
     times = []
     for _ in range(requests):
         t0 = time.perf_counter()
         out = fwd(params, *batch_args)
         sync()
         times.append(time.perf_counter() - t0)
-    launches = roi_align_fwd.launches
+    launches = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": 0,
+                "detectorch_nms": batched_nms_kernel.launches}
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else 0.0
     n_valid, n_rois = check_outputs(out, cfg, test_cfg, batch)
     total = sum(times)
@@ -615,8 +634,10 @@ def phase_main_path(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
         f"valid detections per image {n_valid}; kernel launches {launches}; peak memory "
         f"{peak:.2f} GiB")
     if device.type == "cuda":
-        check(launches == 2 * requests,
-              f"RoIAlign kernel launched {launches} times in {requests} requests, expected 2 each")
+        check(launches == {"roi_align_fwd": 2 * requests, "roi_align_bwd": 0,
+                           "detectorch_nms": 4 * requests},
+              f"kernel launches {launches} in {requests} requests, expected 2 RoIAlign forward "
+              "and 4 NMS (the proposal and the per-class call) each")
     return launches, batch * requests / total, params
 
 
@@ -927,6 +948,7 @@ def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     from detectorch_tpu_torch.config import PRESETS, SolverConfig
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
     from detectorch_tpu_torch.train.solver import apply_update
     from detectorch_tpu_torch.train.train_step import box_branch_loss, make_train_step
@@ -971,13 +993,14 @@ def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     log(f"[{tag}] warm-up step: {time.perf_counter() - t0:.3f} s")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    roi_align_fwd.launches = roi_align_bwd.launches = 0
+    roi_align_fwd.launches = roi_align_bwd.launches = batched_nms_kernel.launches = 0
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
         losses.append(run()["loss"])
         times.append(time.perf_counter() - t0)
-    launches = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": roi_align_bwd.launches}
+    launches = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": roi_align_bwd.launches,
+                "detectorch_nms": batched_nms_kernel.launches}
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else 0.0
     # the fifth step in stages, synchronised after each: forward (loss),
     # backward, optimizer update
@@ -1011,8 +1034,10 @@ def phase_train(device, batch=BATCH, height=HEIGHT, width=WIDTH, cfg=None,
     log(f"[{tag}] loss over 5 steps on one batch: {', '.join(f'{v:.4f}' for v in losses)}; "
         f"step 5 {', '.join(f'{k} {v:.4f}' for k, v in last.items())}")
     if device.type == "cuda":
-        check(launches == {"roi_align_fwd": 6, "roi_align_bwd": 6},
-              f"kernel launches {launches} in 3 steps, expected 2 forward + 2 backward each")
+        # the Fast R-CNN step takes its rois as given: no proposals, no NMS
+        check(launches == {"roi_align_fwd": 6, "roi_align_bwd": 6, "detectorch_nms": 0},
+              f"kernel launches {launches} in 3 steps, expected 2 forward + 2 backward each "
+              "and no NMS")
     check(losses[-1] < losses[0], f"loss did not fall over 5 steps: {losses}")
     if not cfg.use_fpn or cfg.keypoint is not None:
         size = branch_size(cfg)
@@ -1295,8 +1320,8 @@ def paste_inputs(cfg, test_cfg, params, pictures, batch, device):
 def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
                parity_images=PARITY_IMAGES, card="", tag="9 eval", weights=None, tie=0.0,
                keep=None):
-    """COCO evaluation through the port's entry points; returns the forward
-    kernel's launch count in the timed run and its img/s. A `keep` dict
+    """COCO evaluation through the port's entry points; returns the kernels'
+    launch counts in the timed run and its img/s. A `keep` dict
     receives what phase 26 reuses: the dataset, the segm results, the
     finalize seconds, and the paste inputs of one batch of each orientation
     (its first half: 4 images at 480x640 and 4 at 640x480)."""
@@ -1315,6 +1340,7 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax
     from detectorch_tpu_torch.eval.engine import evaluate_dataset
     from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
 
     cfg = cfg or PRESETS[PRESET]
@@ -1346,10 +1372,11 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
         t0 = time.perf_counter()
         run(roidb=firsts)
         log(f"[{tag}] warm-up over {len(firsts)} short batches: {time.perf_counter() - t0:.2f} s")
-        roi_align_fwd.launches = 0
+        roi_align_fwd.launches = batched_nms_kernel.launches = 0
         t0 = time.perf_counter()
         bbox_stats, segm_stats, info = run(roidb=roidb)
-        launches = roi_align_fwd.launches
+        launches = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": 0,
+                    "detectorch_nms": batched_nms_kernel.launches}
         wall = time.perf_counter() - t0
         engines.clear()
         if keep is not None:
@@ -1380,9 +1407,10 @@ def phase_eval(device, images=EVAL_IMAGES, batch=BATCH, cfg=None, test_cfg=None,
             f"{len(info['segm'])} masks, each of its image's size; 12 + 12 finite COCOeval "
             f"stats, bbox AP {bbox_stats[0]:.4f}, segm AP {segm_stats[0]:.4f} (random weights)")
         if device.type == "cuda":
-            check(launches == 2 * n_batches,
-                  f"RoIAlign kernel launched {launches} times in {n_batches} batches, "
-                  "expected 2 each")
+            check(launches == {"roi_align_fwd": 2 * n_batches, "roi_align_bwd": 0,
+                               "detectorch_nms": 4 * n_batches},
+                  f"kernel launches {launches} in {n_batches} batches, expected 2 RoIAlign "
+                  "forward and 4 NMS each")
 
         # fp32, TF32 off, masks fetched in fp32: the batched engine's results
         # equal the single-image engine's. Random mask logits all sit within
@@ -1463,6 +1491,7 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.config import PRESETS, SamplerConfig, SolverConfig
     from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
     from detectorch_tpu_torch.tools.profile_e2e_train import make_e2e_batch
     from detectorch_tpu_torch.train.e2e import e2e_losses, make_e2e_train_step, torch_uniforms
@@ -1512,13 +1541,14 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
     log(f"[{tag}] warm-up step: {time.perf_counter() - t0:.3f} s")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    roi_align_fwd.launches = roi_align_bwd.launches = 0
+    roi_align_fwd.launches = roi_align_bwd.launches = batched_nms_kernel.launches = 0
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
         losses.append(run()["loss"])
         times.append(time.perf_counter() - t0)
-    launches = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": roi_align_bwd.launches}
+    launches = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": roi_align_bwd.launches,
+                "detectorch_nms": batched_nms_kernel.launches}
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else 0.0
 
     # the fifth step in stages, synchronised after each
@@ -1577,8 +1607,9 @@ def phase_e2e_train(device, height=HEIGHT, width=WIDTH, cfg=None, sizes=E2E_SIZE
             f"{profile['syncs']} cudaStreamSynchronize calls; most device time: "
             + ", ".join(f"{name} {ms:.2f} ms" for name, ms in profile["top"]))
     if device.type == "cuda":
-        check(launches == {"roi_align_fwd": 6, "roi_align_bwd": 6},
-              f"kernel launches {launches} in 3 steps, expected 2 forward + 2 backward each")
+        check(launches == {"roi_align_fwd": 6, "roi_align_bwd": 6, "detectorch_nms": 6},
+              f"kernel launches {launches} in 3 steps, expected 2 forward + 2 backward and 2 "
+              "NMS (the proposal call) each")
     check(losses[-1] < losses[0], f"loss did not fall over 5 steps: {losses}")
     return launches, rate
 
@@ -1891,24 +1922,22 @@ def phase_c4(device, smi):
 
     launches = {}
     c4_params = params()
-    infer, _, _ = phase_main_path(device, cfg=cfg, card=smi, tag="13 c4 main", params=c4_params)
-    launches["c4_inference"] = {"roi_align_fwd": infer, "roi_align_bwd": 0}
+    launches["c4_inference"], _, _ = phase_main_path(device, cfg=cfg, card=smi,
+                                                     tag="13 c4 main", params=c4_params)
     stages = phase_c4_stages(device, c4_params, cfg)
     log("[13 c4 main] request in stages (ms): "
         + ", ".join(f"{name} {ms:.1f}" for name, ms in stages)
         + f"; total {sum(ms for _, ms in stages):.1f}")
     phase_fp32_parity(device, c4_params, cfg=cfg, tag="13 c4 fp32", images=2)
     del c4_params
-    r101, _, _ = phase_main_path(device, cfg=PRESETS[R101_PRESET], card=smi, requests=2,
-                                 tag="13 r101 main")
-    launches["r101_inference"] = {"roi_align_fwd": r101, "roi_align_bwd": 0}
+    launches["r101_inference"], _, _ = phase_main_path(device, cfg=PRESETS[R101_PRESET],
+                                                       card=smi, requests=2, tag="13 r101 main")
     torch.cuda.empty_cache()
     # the res5 head of c4_weights scores every class near 1/81: scores of one
     # class tie within fp32 rounding, which batch and single engines order
     # either way
-    evals, _ = phase_eval(device, cfg=cfg, card=smi, tag="14 c4 eval", weights=c4_weights(cfg),
-                          tie=1e-5)
-    launches["c4_eval"] = {"roi_align_fwd": evals, "roi_align_bwd": 0}
+    launches["c4_eval"], _ = phase_eval(device, cfg=cfg, card=smi, tag="14 c4 eval",
+                                        weights=c4_weights(cfg), tie=1e-5)
     torch.cuda.empty_cache()
     launches["c4_training"], _ = phase_train(device, cfg=cfg, card=smi, tag="15 c4 train",
                                              params=params())
@@ -2070,8 +2099,8 @@ def phase_kp_eval(device, cfg, card="", images=KP_EVAL_IMAGES, hw=KP_EVAL_HW, ba
     """COCO keypoint evaluation of a person-keypoints set made by the port's
     data/synth copy (PNG files, read by evaluate_dataset's own loader),
     batched with on-device preprocessing; then the batched engine against
-    the single-image engine in fp32. Returns the forward kernel's launches
-    in the timed run."""
+    the single-image engine in fp32. Returns the kernels' launches in the
+    timed run."""
     import collections
     import functools
     import math
@@ -2086,6 +2115,7 @@ def phase_kp_eval(device, cfg, card="", images=KP_EVAL_IMAGES, hw=KP_EVAL_HW, ba
     from detectorch_tpu_torch.data.synth import build_synth_coco
     from detectorch_tpu_torch.eval.engine import evaluate_dataset
     from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_fwd
 
     # random weights score the person class near 1/2: score_thresh 0 keeps
@@ -2108,10 +2138,11 @@ def phase_kp_eval(device, cfg, card="", images=KP_EVAL_IMAGES, hw=KP_EVAL_HW, ba
         t0 = time.perf_counter()
         run(roidb=roidb[:1])
         log(f"[{tag}] warm-up (one short batch): {time.perf_counter() - t0:.2f} s")
-        roi_align_fwd.launches = 0
+        roi_align_fwd.launches = batched_nms_kernel.launches = 0
         t0 = time.perf_counter()
         bbox_stats, _, info = run(roidb=roidb)
-        launches = roi_align_fwd.launches
+        launches = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": 0,
+                    "detectorch_nms": batched_nms_kernel.launches}
         wall = time.perf_counter() - t0
         engines.clear()
         n_batches = math.ceil(len(roidb) / batch)
@@ -2135,9 +2166,10 @@ def phase_kp_eval(device, cfg, card="", images=KP_EVAL_IMAGES, hw=KP_EVAL_HW, ba
             f"{max(per_image.values())}; OKS stats (random weights: they show the path runs) "
             + " ".join(f"{v:.4f}" for v in kstats) + f"; bbox AP {bbox_stats[0]:.4f}")
         if device.type == "cuda":
-            check(launches == 2 * n_batches,
-                  f"RoIAlign kernel launched {launches} times in {n_batches} batches, "
-                  "expected 2 each")
+            check(launches == {"roi_align_fwd": 2 * n_batches, "roi_align_bwd": 0,
+                               "detectorch_nms": 4 * n_batches},
+                  f"kernel launches {launches} in {n_batches} batches, expected 2 RoIAlign "
+                  "forward and 4 NMS each")
 
         # fp32, TF32 off: the batched engine's results equal the single-image
         # engine's. Random weights score the person class near 1/2, so scores
@@ -2177,8 +2209,8 @@ def phase_kp(device, smi):
 
     cfg = PRESETS[KP_PRESET]
     launches, calls = {}, {"fwd": [], "bwd": []}
-    infer, _, params = phase_main_path(device, cfg=cfg, card=smi, tag="17 kp main")
-    launches["keypoint_inference"] = {"roi_align_fwd": infer, "roi_align_bwd": 0}
+    launches["keypoint_inference"], _, params = phase_main_path(device, cfg=cfg, card=smi,
+                                                                tag="17 kp main")
     stages, (feats, kp_rois) = phase_kp_stages(device, params, cfg)
     log("[17 kp main] request in stages (ms): "
         + ", ".join(f"{name} {ms:.1f}" for name, ms in stages)
@@ -2190,8 +2222,7 @@ def phase_kp(device, smi):
     phase_fp32_parity(device, params, cfg=cfg, tag="17 kp fp32", images=2)
     del params
     torch.cuda.empty_cache()
-    launches["keypoint_eval"] = {"roi_align_fwd": phase_kp_eval(device, cfg, card=smi),
-                                 "roi_align_bwd": 0}
+    launches["keypoint_eval"] = phase_kp_eval(device, cfg, card=smi)
     torch.cuda.empty_cache()
     launches["keypoint_training"], _ = phase_train(device, cfg=cfg, card=smi, tag="19 kp train")
     rows = make_train_batch(np.random.RandomState(0), BATCH, HEIGHT, WIDTH, cfg.num_classes,
@@ -2288,6 +2319,7 @@ def phase_world1(device, card="", e2e_ms=None, backend="nccl", steps=4, **setup)
 
     from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
     from detectorch_tpu_torch.models.detector import init_params
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
     from detectorch_tpu_torch.parallel import mesh as par
 
@@ -2309,14 +2341,17 @@ def phase_world1(device, card="", e2e_ms=None, backend="nccl", steps=4, **setup)
         step, metrics, times = make_step(opt), [], []
         for i in range(steps):
             if i == 1:
-                roi_align_fwd.launches = roi_align_bwd.launches = 0
+                roi_align_fwd.launches = roi_align_bwd.launches = batched_nms_kernel.launches = 0
             t0 = time.perf_counter()
             state, m = step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
             sync()
             times.append(time.perf_counter() - t0)
         return {"metrics": metrics, "ms": sum(times[1:]) / (steps - 1) * 1e3,
-                "launches": (roi_align_fwd.launches, roi_align_bwd.launches), "state": state}
+                "launches": {"roi_align_fwd": roi_align_fwd.launches,
+                             "roi_align_bwd": roi_align_bwd.launches,
+                             "detectorch_nms": batched_nms_kernel.launches},
+                "state": state}
 
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": str(device.index or 0)}
     saved_env = {k: os.environ.get(k) for k in env}
@@ -2381,12 +2416,12 @@ def phase_world1(device, card="", e2e_ms=None, backend="nccl", steps=4, **setup)
     check(worst <= PAR_LOSS_RTOL, f"mesh metrics differ from the plain step's by {worst:.3g}")
     check(all(np.isfinite(v) for m in meshed["metrics"] for v in m.values()), "non-finite")
     if device.type == "cuda":
-        check(meshed["launches"] == (2 * (steps - 1), 2 * (steps - 1)),
+        # per step: 2 RoIAlign forward, 2 backward, 2 NMS (the proposal call)
+        check(meshed["launches"] == dict.fromkeys(meshed["launches"], 2 * (steps - 1)),
               f"kernel launches {meshed['launches']} in {steps - 1} steps on the mesh")
     return {"ms_per_step": meshed["ms"], "plain_ms_per_step": plain["ms"],
             "allreduce_bucketed_ms": bucketed_ms, "allreduce_per_leaf_ms": leaf_ms,
-            "launches": {"roi_align_fwd": meshed["launches"][0],
-                         "roi_align_bwd": meshed["launches"][1]}}
+            "launches": meshed["launches"]}
 
 
 def parallel_references(device, ref_path, eval_root, setup, infer_hw, eval_images, eval_test):
@@ -2503,6 +2538,7 @@ def parallel_rank(ref_path, eval_root, setup, infer_hw, eval_images, eval_test):
     from detectorch_tpu_torch.data.coco import CocoDataset
     from detectorch_tpu_torch.eval.engine import evaluate_dataset
     from detectorch_tpu_torch.models.detector import init_params, make_inference_fn
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
     from detectorch_tpu_torch.parallel import mesh as par
     from detectorch_tpu_torch.parallel.dryrun import compare_outputs, to_host
@@ -2541,13 +2577,14 @@ def parallel_rank(ref_path, eval_root, setup, infer_hw, eval_images, eval_test):
         check(torch.equal(got, want), f"rank {r}: sampled {k} differ from world 1's")
     roi_err = float((sampled["rois"] - exp["rois"]).abs().max())
     check(roi_err <= 2e-3, f"rank {r}: sampled rois {roi_err} px from world 1's")
-    roi_align_fwd.launches = roi_align_bwd.launches = 0
+    roi_align_fwd.launches = roi_align_bwd.launches = batched_nms_kernel.launches = 0
     t0 = time.perf_counter()
     state, metrics = make_step(opt)(state, rows)
     sync()
     out["step_ms"] = (time.perf_counter() - t0) * 1e3
     out["step_launches"] = {"roi_align_fwd": roi_align_fwd.launches,
-                            "roi_align_bwd": roi_align_bwd.launches}
+                            "roi_align_bwd": roi_align_bwd.launches,
+                            "detectorch_nms": batched_nms_kernel.launches}
     rel = {k: abs(float(metrics[k]) - v) / max(abs(v), 1e-12)
            for k, v in ref["metrics"].items()}
     out["loss_rel"] = max(rel.values())
@@ -2579,18 +2616,21 @@ def parallel_rank(ref_path, eval_root, setup, infer_hw, eval_images, eval_test):
     for shape in ((2, 1), (1, 2)):
         imesh = par.make_mesh(*shape, device=device)
         args = par.shard_batch(imesh, images, *scalars)
-        roi_align_fwd.launches = 0
+        roi_align_fwd.launches = batched_nms_kernel.launches = 0
         got = par.make_batched_inference_fn(icfg, itc, imesh)(
             par.shard_params(iparams, imesh), *args)
         sync()
-        launches = roi_align_fwd.launches
+        launches, nms_launches = roi_align_fwd.launches, batched_nms_kernel.launches
         single = make_inference_fn(icfg, itc)(iparams, *args)
         first = imesh.coords["data"] * len(args[0])
         errs = [compare_outputs(to_host(got), to_host(single), first + j, j)
                 for j in range(len(args[0]))]
-        out["inference"][f"{shape[0]}x{shape[1]}"] = {"launches": launches, "compare": errs}
+        out["inference"][f"{shape[0]}x{shape[1]}"] = {"launches": launches,
+                                                      "nms_launches": nms_launches,
+                                                      "compare": errs}
         if device.type == "cuda":
-            check(launches == 2, f"inference on mesh {shape}: {launches} forward launches")
+            check(launches == 2 and nms_launches == 4, f"inference on mesh {shape}: {launches} "
+                  f"forward and {nms_launches} NMS launches, expected 2 and 4")
     del iparams
 
     # 24: evaluate_dataset on the mesh: bf16 img/s, then fp32 results
@@ -2607,10 +2647,11 @@ def parallel_rank(ref_path, eval_root, setup, infer_hw, eval_images, eval_test):
                             batch_size=PAR_BATCH, mesh=mesh, engines=engines, load_image=load,
                             device=device)
     run(roidb=list({(e.height, e.width): e for e in reversed(roidb)}.values()))
-    roi_align_fwd.launches = 0
+    roi_align_fwd.launches = batched_nms_kernel.launches = 0
     _, _, info = run(roidb=roidb)
     out["eval"] = {"images_per_sec": info["images_per_sec"],
-                   "phase_seconds": info["phase_seconds"], "launches": roi_align_fwd.launches}
+                   "phase_seconds": info["phase_seconds"], "launches": roi_align_fwd.launches,
+                   "nms_launches": batched_nms_kernel.launches}
     engines.clear()
     ecfg, etcfg, eparams = eval32_config(icfg, eval_test)
     _, _, info = evaluate_dataset(ecfg, etcfg, eparams, ds, verbose=False, batch_size=PAR_BATCH,
@@ -2661,21 +2702,26 @@ def phase_parallel(device, card="", eval_rate=None, backend="gloo", setup=None,
                                            f"{r['params']}" if "params" in r else ""))
     for r in ranks:
         for shape, v in r["inference"].items():
-            log(f"[24 inference] rank {r['rank']} mesh {shape}: {v['launches']} forward "
-                f"launches; vs one process on its rows: {v['compare']}")
+            log(f"[24 inference] rank {r['rank']} mesh {shape}: {v['launches']} forward and "
+                f"{v['nms_launches']} NMS launches; vs one process on its rows: {v['compare']}")
         split = " ".join(f"{k}={s:.3f}s" for k, s in r["eval"]["phase_seconds"].items())
         log(f"[24 eval] rank {r['rank']}: {r['eval']['images_per_sec']:.2f} img/s over "
             f"{sum(c for _, _, c in eval_images)} images at global batch {PAR_BATCH} "
-            f"(loop split: {split}), {r['eval']['launches']} forward launches"
+            f"(loop split: {split}), {r['eval']['launches']} forward and "
+            f"{r['eval']['nms_launches']} NMS launches"
             + (f"; phase 9 (world 1) {eval_rate:.2f} img/s" if eval_rate else "")
             + " - two processes sharing one card, not a multi-card scaling figure")
         log(f"[24 eval] rank {r['rank']} fp32 results vs world 1: {r['eval32']}")
     log(f"[23-24] world 1 references {t_ref:.1f} s, two ranks {t_ranks:.1f} s")
     if device.type == "cuda":
         for r in ranks:
-            check(r["step_launches"] == {"roi_align_fwd": 2, "roi_align_bwd": 2},
+            check(r["step_launches"] == {"roi_align_fwd": 2, "roi_align_bwd": 2,
+                                         "detectorch_nms": 2},
                   f"rank {r['rank']}: e2e step launches {r['step_launches']}")
-            check(r["eval"]["launches"] > 0, f"rank {r['rank']}: no eval launch")
+            check(r["eval"]["launches"] > 0
+                  and r["eval"]["nms_launches"] == 2 * r["eval"]["launches"],
+                  f"rank {r['rank']}: eval launches {r['eval']['launches']} forward, "
+                  f"{r['eval']['nms_launches']} NMS; expected 2 and 4 a batch")
     return ranks
 
 
@@ -2852,6 +2898,7 @@ def demo_path(device, root, preset, tag):
     from detectorch_tpu_torch.data.transforms import load_image_rgb
     from detectorch_tpu_torch.eval import rle
     from detectorch_tpu_torch.eval.engine import InferenceEngine
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
     from detectorch_tpu_torch.tools import demo
     from detectorch_tpu_torch.utils.vis import vis_one_image
@@ -2871,11 +2918,12 @@ def demo_path(device, root, preset, tag):
     log(f"[{tag}] {preset}: data/synth image and Detectron pkl in "
         f"{time.perf_counter() - t0:.2f} s; python -m detectorch_tpu_torch.tools.demo "
         + " ".join(os.path.relpath(a, root) if a.startswith(root) else a for a in argv))
-    roi_align_fwd.launches = roi_align_bwd.launches = 0
+    roi_align_fwd.launches = roi_align_bwd.launches = batched_nms_kernel.launches = 0
     t0 = time.perf_counter()
     res_cli = demo.main(argv)
     cli_s = time.perf_counter() - t0
-    launches = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": roi_align_bwd.launches}
+    launches = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": roi_align_bwd.launches,
+                "detectorch_nms": batched_nms_kernel.launches}
 
     engine = InferenceEngine(cfg, TestConfig(), c2.fold_bn(c2.import_params(
         c2.load_caffe2_pkl(pkl), cfg)), device)
@@ -2908,9 +2956,10 @@ def demo_path(device, root, preset, tag):
     if device.type == "cuda":
         check(launches["roi_align_bwd"] == 0 and launches["roi_align_fwd"] >= 2
               and launches["roi_align_fwd"] % 2 == 0
-              and engine_launches == launches["roi_align_fwd"],
+              and engine_launches == launches["roi_align_fwd"]
+              and launches["detectorch_nms"] == 2 * launches["roi_align_fwd"],
               f"demo launches {launches}, run_image {engine_launches}: expected 2 forward "
-              "a request")
+              "and 4 NMS a request")
     check(shown.any() and not (drawn == im).all(), "the demo drew nothing")
     check(masks_drawn > 0 if cfg.use_mask else kps_drawn > 0,
           "no mask or keypoint above its threshold was drawn")
@@ -3037,13 +3086,14 @@ def phase_production_ap(device, smi, plan=PAP_PLAN, images=None, tag="27 product
     import numpy as np
 
     from detectorch_tpu_torch.config import PRESETS
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
     from detectorch_tpu_torch.tools import production_ap as pap
 
     t_phase = time.perf_counter()
     launches, summary = {}, {}
     with tempfile.TemporaryDirectory() as root:
-        roi_align_fwd.launches = roi_align_bwd.launches = 0
+        roi_align_fwd.launches = roi_align_bwd.launches = batched_nms_kernel.launches = 0
         for preset, variants in plan:
             cfg = PRESETS[preset]
             t0 = time.perf_counter()
@@ -3080,14 +3130,16 @@ def phase_production_ap(device, smi, plan=PAP_PLAN, images=None, tag="27 product
                                    "seconds", "stats")}
                 | {k: r[k] for k in ("ap_delta_vs_row1", "max_delta_vs_row1") if k in r}
                 for r in rows]}
-        total = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": roi_align_bwd.launches}
+        total = {"roi_align_fwd": roi_align_fwd.launches, "roi_align_bwd": roi_align_bwd.launches,
+                 "detectorch_nms": batched_nms_kernel.launches}
     seconds = time.perf_counter() - t_phase
     log(f"[{tag}] {len(plan)} presets in {seconds:.1f} s ("
         + ", ".join(f"{p} {s['seconds']:.1f} s" for p, s in summary.items())
         + f"), probe fits included; launches in the phase {total} on {smi}")
     if device.type == "cuda":
-        check(total["roi_align_fwd"] > 0, "phase 27 launched no forward kernel")
-    return launches, {"seconds": seconds, "presets": summary}
+        check(total["roi_align_fwd"] > 0 and total["detectorch_nms"] > 0,
+              f"phase 27 launched no forward or no NMS kernel: {total}")
+    return launches, {"seconds": seconds, "presets": summary, "launches": total}
 
 
 # --- the measurement tools (phase 28) -------------------------------------
@@ -3098,14 +3150,15 @@ STAGE_ITERS = 3
 
 
 def counted(run):
-    """run() with both kernels' counts set to 0 just before it; returns
-    (its result, the counts read just after)."""
+    """run() with the three kernels' counts set to 0 just before it;
+    returns (its result, the counts read just after)."""
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
     from detectorch_tpu_torch.tools.measure import launches
 
-    roi_align_fwd.launches = roi_align_bwd.launches = 0
+    roi_align_fwd.launches = roi_align_bwd.launches = batched_nms_kernel.launches = 0
     out = run()
-    return out, launches()
+    return out, {**launches(), "detectorch_nms": batched_nms_kernel.launches}
 
 
 def phase_tools(device, smi, infer_rate, tag="28 tools"):
@@ -3217,15 +3270,22 @@ def phase_tools(device, smi, infer_rate, tag="28 tools"):
     # whole calls, warm-ups included: a build and a warm request then the
     # timed ones; a first step then the timed ones; per preset the fused
     # reference, iters + 1 staged and iters fused requests; the counts of
-    # one request and of the Fast R-CNN, e2e Faster, Mask and Keypoint steps
-    expected = {"bench": (2 * (TOOL_ITERS + 2), 0), "bench_train": (TOOL_ITERS + 1,) * 2,
-                "profile_e2e_train": (2 * (TOOL_ITERS + 1),) * 2,
-                "profile_stages": (2 * (2 * STAGE_ITERS + 2), 0),
-                "profile_stages_c4": (2 * (2 * STAGE_ITERS + 2), 0),
-                "profile_mfu": (2 + 1 + 1 + 2 + 2, 1 + 1 + 2 + 2)}
-    for name, (fwd, bwd) in expected.items():
-        check(launches[name] == {"roi_align_fwd": fwd, "roi_align_bwd": bwd},
-              f"{name}: {launches[name]} in the whole call, expected {fwd} + {bwd}")
+    # one request and of the Fast R-CNN, e2e Faster, Mask and Keypoint steps.
+    # NMS: 4 launches a request (the proposal and the per-class call), 2 an
+    # e2e step (the proposal call), none a Fast R-CNN step
+    expected = {"bench": (2 * (TOOL_ITERS + 2), 0, 4 * (TOOL_ITERS + 2)),
+                "bench_train": (TOOL_ITERS + 1, TOOL_ITERS + 1, 0),
+                "profile_e2e_train": (2 * (TOOL_ITERS + 1),) * 3,
+                "profile_stages": (2 * (2 * STAGE_ITERS + 2), 0, 4 * (2 * STAGE_ITERS + 2)),
+                "profile_stages_c4": (2 * (2 * STAGE_ITERS + 2), 0, 4 * (2 * STAGE_ITERS + 2)),
+                "profile_mfu": (2 + 1 + 1 + 2 + 2, 1 + 1 + 2 + 2, 4 + 0 + 2 + 2 + 2)}
+    for name, (fwd, bwd, nms) in expected.items():
+        check(launches[name] == {"roi_align_fwd": fwd, "roi_align_bwd": bwd,
+                                 "detectorch_nms": nms},
+              f"{name}: {launches[name]} in the whole call, expected {fwd} + {bwd} RoIAlign "
+              f"and {nms} NMS")
+    check(launches["bench_e2e"]["detectorch_nms"] == 2 * launches["bench_e2e"]["roi_align_fwd"],
+          f"bench_e2e: {launches['bench_e2e']} in the whole call, expected 4 NMS a batch")
     flag = m["flops"][0]
     cfg = PRESETS[PRESET]
     closed = profile_mfu.inference_closed_form(cfg, TestConfig(), BATCH, HEIGHT, WIDTH)
@@ -3253,6 +3313,171 @@ def phase_tools(device, smi, infer_rate, tag="28 tools"):
                                         for r in m["flops"]]},
                  seconds=time.perf_counter() - t_phase)
     return launches, lines
+
+
+# --- the NMS kernel (csrc/nms.cu) ------------------------------------------
+
+# (name, rows, candidates, slots, threshold): the main path's three NMS calls
+# at batch 8: C4's proposals (one level), FPN's proposals (5 levels), the
+# per-class NMS of postprocess (80 classes, 100 + 8 slots)
+NMS_SHAPES = (("c4_proposals", 8, 6000, 1000, 0.7), ("fpn_proposals", 40, 1000, 1000, 0.7),
+              ("postprocess", 640, 1000, 108, 0.5))
+# fp32 operations of one IoU decision in the mask kernel (min, max, sub and
+# add for each side, two clamps, the product, the union's add and sub, the
+# division, the comparison)
+NMS_PAIR_OPS = 15
+
+
+def nms_rows(gen, m, n, device, objects=40, height=800.0, width=1333.0):
+    """(m, n, 4) proposal-like boxes, each jittered around one of a few
+    objects of the row by up to a quarter of its size, and (m, n) scores."""
+    import math
+
+    import torch
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    centre = u(m, objects, 2) * torch.tensor([width, height], device=device)
+    half = torch.exp(math.log(8) + u(m, objects, 2) * math.log(250 / 8))
+    pick = (u(m, n) * objects).long().clamp_max(objects - 1)[..., None].expand(m, n, 2)
+    h = torch.gather(half, 1, pick) * (0.75 + 0.5 * u(m, n, 2))
+    c = torch.gather(centre, 1, pick) + (u(m, n, 2) - 0.5) * 0.5 * h
+    return torch.cat([c - h, c + h], -1), u(m, n)
+
+
+def nms_mask_bound(alive):
+    """The mask kernel's least time on these rows: the boxes and alive read
+    once and the upper-triangle words of live boxes written once, or
+    NMS_PAIR_OPS fp32 operations for each pair (live i, j > i) it decides,
+    at 3.35 TB/s and 67 TFLOP/s. Returns (ms, "bytes" or "operations")."""
+    import torch
+
+    from detectorch_tpu_torch.tools.measure import roofline
+
+    m, n = alive.shape
+    i = torch.arange(n, device=alive.device)
+    live = alive.double()
+    pairs = float((live * (n - 1 - i)).sum())
+    words = float((live * (-(-n // 64) - i // 64)).sum())
+    return roofline(m * n * 17 + words * 8, NMS_PAIR_OPS * pairs)
+
+
+def phase_nms(device, smi, tag="29 nms"):
+    """Phase 29: the NMS kernel at the main path's three shapes (NMS_SHAPES,
+    proposal-like rows; the per-class rows valid above a score of 0.05):
+    equal to batched_nms_blocked bit for bit, two launches a call, the
+    call's time by CUDA events and each stage's by the profiler beside the
+    mask's bound, the blocked version's time and torchvision's batched_nms
+    (where installed; other IoU and threshold conventions, a yardstick of
+    speed only); then one FPN and one C4 request at batch 8 (score_thresh
+    0, so every class row is live) equal, every output bit for bit, to the
+    same request with the blocked version forced at both call sites.
+    Returns the kernel's rows."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
+    from detectorch_tpu_torch.config import PRESETS, TestConfig
+    from detectorch_tpu_torch.eval import postprocess
+    from detectorch_tpu_torch.models import rpn
+    from detectorch_tpu_torch.models.detector import init_params, make_inference_fn
+    from detectorch_tpu_torch.ops import nms
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
+
+    try:
+        from torchvision.ops import batched_nms as library_nms
+    except ImportError:
+        library_nms = None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(29)
+    rows = []
+    for name, m, n, max_out, thresh in NMS_SHAPES:
+        boxes, scores = nms_rows(gen, m, n, device)
+        valid = None
+        if name == "postprocess":
+            scores = scores ** 4
+            valid = scores > 0.05
+        args = (boxes, scores, max_out, thresh, valid)
+        exp = nms.batched_nms_blocked(*args)
+        before = batched_nms_kernel.launches
+        got = nms.batched_nms(*args)
+        torch.cuda.synchronize()
+        check(batched_nms_kernel.launches == before + 2,
+              f"{name}: {batched_nms_kernel.launches - before} NMS launches, expected 2")
+        check(torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1]),
+              f"{name}: the NMS kernel's keep_idx/keep_valid differ from the blocked version's")
+        ms = cuda_time_ms(lambda: nms.batched_nms(*args), iters=20)
+        plain_ms = cuda_time_ms(lambda: nms.batched_nms_blocked(*args), iters=3, warmup=1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                nms.batched_nms(*args)
+            torch.cuda.synchronize()
+        stage_ms = {}
+        for stage in ("mask", "scan"):
+            events = [e for e in prof.key_averages() if f"detectorch_nms_{stage}" in e.key]
+            stage_ms[stage] = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+                                  for e in events) / 10 / 1e3
+        library_ms = None
+        if library_nms is not None:
+            flat_ok = (valid if valid is not None else torch.ones_like(scores, dtype=torch.bool))
+            ids = torch.arange(m, device=device)[:, None].expand(m, n)[flat_ok]
+            fb, fs = boxes[flat_ok], scores[flat_ok]
+            library_ms = cuda_time_ms(lambda: library_nms(fb, fs, ids, thresh), iters=5)
+        bound_ms, bound_by = nms_mask_bound(nms.sort_rows(boxes, scores, valid)[1])
+        row = {"call": name, "rows": m, "candidates": n, "max_out": max_out, "thresh": thresh,
+               "kept": int(got[1].sum()), "ms": ms, "mask_ms": stage_ms["mask"],
+               "scan_ms": stage_ms["scan"], "mask_bound_ms": bound_ms, "bound_by": bound_by,
+               "mask_share": bound_ms / stage_ms["mask"] if stage_ms["mask"] else None,
+               "plain_ms": plain_ms, "library_ms": library_ms}
+        rows.append(row)
+        log(f"[{tag}] {name} {m}x{n} -> {max_out} at {thresh}: kept {row['kept']}, equal to "
+            f"the blocked version; kernel {ms:.4f} ms (mask {stage_ms['mask']:.4f}, scan "
+            f"{stage_ms['scan']:.4f}; mask bound {bound_ms:.4f} ms by {bound_by}), blocked "
+            f"{plain_ms:.2f} ms, torchvision "
+            f"{'not installed' if library_ms is None else f'{library_ms:.4f} ms'} on {smi}")
+
+    @contextlib.contextmanager
+    def blocked():
+        saved = rpn.batched_nms, postprocess.batched_nms
+        rpn.batched_nms = postprocess.batched_nms = nms.batched_nms_blocked
+        try:
+            yield
+        finally:
+            rpn.batched_nms, postprocess.batched_nms = saved
+
+    test_cfg = TestConfig(score_thresh=0.0)
+    for preset, weights in ((PRESET, init_params), (C4_PRESET, c4_weights)):
+        cfg = PRESETS[preset]
+        params = params_to_device(params_from_jax(weights(cfg)), device)
+        fwd = make_inference_fn(cfg, test_cfg)
+        batch_args = _batch(gen, BATCH, HEIGHT, WIDTH, device)
+        batched_nms_kernel.launches = 0
+        out = fwd(params, *batch_args)
+        torch.cuda.synchronize()
+        launches = batched_nms_kernel.launches
+        with blocked():
+            ref = fwd(params, *batch_args)
+        torch.cuda.synchronize()
+        fields = {"rois": (out.rois, ref.rois), "roi_valid": (out.roi_valid, ref.roi_valid),
+                  "cls_scores": (out.cls_scores, ref.cls_scores),
+                  "det_boxes": (out.detections.boxes, ref.detections.boxes),
+                  "det_scores": (out.detections.scores, ref.detections.scores),
+                  "det_classes": (out.detections.classes, ref.detections.classes),
+                  "det_valid": (out.detections.valid, ref.detections.valid),
+                  "masks": (out.masks, ref.masks)}
+        differ = [k for k, (a, b) in fields.items() if not torch.equal(a, b)]
+        check(not differ, f"{preset}: the request with the NMS kernel differs from the blocked "
+                          f"version's in {differ}")
+        check(launches == 4, f"{preset}: {launches} NMS launches a request, expected 4")
+        log(f"[{tag}] {preset} request at batch {BATCH}: every output equal to the blocked "
+            f"version's; NMS launches {launches}; valid detections "
+            f"{int(out.detections.valid.sum())}")
+        del params
+        torch.cuda.empty_cache()
+    return rows
 
 
 def per_kernel(launches, kernel):
@@ -3305,13 +3530,17 @@ def main() -> int:
     pap_launches, pap = phase_production_ap(device, smi)
     torch.cuda.empty_cache()
     tool_launches, tool_lines = phase_tools(device, smi, infer_rate)
+    torch.cuda.empty_cache()
+    nms_calls = phase_nms(device, smi)
+    fpn_nms = next(r for r in nms_calls if r["call"] == "fpn_proposals")
     parallel_launches = {
         "world1_nccl_e2e_training": world1["launches"],
         "world2_e2e_training": [r["step_launches"] for r in world2],
-        "world2_inference": [{m: {"roi_align_fwd": v["launches"], "roi_align_bwd": 0}
+        "world2_inference": [{m: {"roi_align_fwd": v["launches"], "roi_align_bwd": 0,
+                                  "detectorch_nms": v["nms_launches"]}
                               for m, v in r["inference"].items()} for r in world2],
-        "world2_eval": [{"roi_align_fwd": r["eval"]["launches"], "roi_align_bwd": 0}
-                        for r in world2],
+        "world2_eval": [{"roi_align_fwd": r["eval"]["launches"], "roi_align_bwd": 0,
+                         "detectorch_nms": r["eval"]["nms_launches"]} for r in world2],
         "dryrun": [{"training": dict(zip(("roi_align_fwd", "roi_align_bwd"),
                                          r["launches"]["train"])),
                     "inference": {"roi_align_fwd": r["launches"]["inference"][0],
@@ -3325,9 +3554,9 @@ def main() -> int:
         "source": f"{source}/roi_align_fwd.cu",
         "replaces": f"{replaces}:164",
         "launches": e2e_launches["roi_align_fwd"],
-        "launches_by_path": {"inference": infer_launches,
+        "launches_by_path": {"inference": infer_launches["roi_align_fwd"],
                              "training": train_launches["roi_align_fwd"],
-                             "eval": eval_launches,
+                             "eval": eval_launches["roi_align_fwd"],
                              "e2e_training": e2e_launches["roi_align_fwd"],
                              **{k: v["roi_align_fwd"] for k, v in c4["launches"].items()},
                              **{k: v["roi_align_fwd"] for k, v in kp["launches"].items()},
@@ -3368,6 +3597,29 @@ def main() -> int:
         "bound_by": bwd_summary["bound_by"],
         "library_ms": None,  # nor its feature gradient
         "calls": bwd_summary["calls"] + c4["kernels"]["bwd_calls"] + kp["calls"]["bwd"],
+    }, {
+        "name": "detectorch_nms",
+        "route": "cuda",
+        "source": f"{source}/nms.cu",
+        "replaces": None,  # ops/nms.batched_nms_blocked on CUDA tensors; no Pallas kernel
+        "launches": e2e_launches["detectorch_nms"],
+        "launches_by_path": {"inference": infer_launches["detectorch_nms"],
+                             "training": train_launches["detectorch_nms"],
+                             "eval": eval_launches["detectorch_nms"],
+                             "e2e_training": e2e_launches["detectorch_nms"],
+                             **{k: v["detectorch_nms"] for k, v in c4["launches"].items()},
+                             **{k: v["detectorch_nms"] for k, v in kp["launches"].items()},
+                             # dryrun_multichip counts the RoIAlign kernels only
+                             **per_kernel({k: v for k, v in parallel_launches.items()
+                                           if k != "dryrun"}, "detectorch_nms"),
+                             **per_kernel(demo_launches, "detectorch_nms"),
+                             "production_ap": pap["launches"]["detectorch_nms"],
+                             **per_kernel(tool_launches, "detectorch_nms")},
+        # the flagship's proposal call (FPN, 40 rows of 1000 at 0.7); bound_ms
+        # is the mask stage's, the scan being latency-bound
+        **{k: fpn_nms[k] for k in ("ms", "plain_ms", "library_ms", "bound_by")},
+        "bound_ms": fpn_nms["mask_bound_ms"],
+        "calls": nms_calls,
     }]
     parallel = {
         "world1_nccl": {k: world1[k] for k in ("ms_per_step", "plain_ms_per_step",

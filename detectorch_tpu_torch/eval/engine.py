@@ -24,9 +24,10 @@ threads; every host-to-device copy and every CUDA call happens on the
 calling thread. PyTorch runs eagerly, so a "program" here is a Python
 closure kept per sample key; none is compiled. RoIAlign is exact for every
 roi, so of the JAX engine's exact rerun only the NMS-prefilter half remains
-(``all_exact`` is ``nms_exact``). The NMS fixpoint syncs with the host,
-so ``submit`` returns only when the device is nearly done: the 2-deep
-pipeline keeps its structure but overlaps little.
+(``all_exact`` is ``nms_exact``). On CPU tensors the NMS's blocked
+fixpoint syncs with the host, so ``submit`` returns only when the work is
+nearly done and the 2-deep pipeline overlaps little; on the card the NMS
+is a kernel that never waits for the host (``ops/nms``).
 """
 
 from __future__ import annotations

@@ -104,7 +104,8 @@ def build_library(source: Path) -> Tuple[Path, str]:
 
 class _Kernel:
     """A kernel's library, entry point and launch count. ``launches`` counts
-    kernel launches (CPU calls that run the plain version do not count);
+    kernel launches, ``kernels`` per call (CPU calls that run the plain
+    version do not count);
     ``build_log`` keeps nvcc's ``-Xptxas -v`` report of the last build.
     ``observers`` are called with every call's geometry, on the CPU and on
     the card: (level shapes, rois, batch_idx, levels, level_scales,
@@ -114,6 +115,7 @@ class _Kernel:
     source: Path
     symbol: str
     argtypes: list
+    kernels = 1
 
     def __init__(self):
         self.launches = 0
@@ -143,7 +145,7 @@ class _Kernel:
         err = self._fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {err}")
-        self.launches += 1
+        self.launches += self.kernels
 
 
 def _int_array(values):

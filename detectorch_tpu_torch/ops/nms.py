@@ -6,13 +6,20 @@ HIGHER input index is processed first (the reference's stable reading of
 ``scores.argsort()[::-1]``). The JAX dispatcher sends N < 192 to an argmax
 loop with the same semantics; the blocked form alone serves every N here.
 
-Greedy suppression over the score-sorted order is a DAG recurrence (box j
-dies iff a kept earlier box overlaps it). It is evaluated in blocks of 128:
-each block resolves its internal dependencies by iterating the antitone map
-k -> base & ~(k A) to its unique fixpoint, then suppresses all later boxes
-with one vectorised IoU pass. Every row of the batch — (image x level) for
-the RPN, (image x class) for postprocessing — advances together, so the
-fixpoint test costs one host sync per iteration for the whole batch.
+``batched_nms`` chooses by where the tensors lie, with no option:
+
+  * CPU tensors run ``batched_nms_blocked``, JAX's blocked form, which the
+    tests hold to ``nms_blocked``. Greedy suppression over the score-sorted
+    order is a DAG recurrence (box j dies iff a kept earlier box overlaps
+    it), evaluated in blocks of 128: each block resolves its internal
+    dependencies by iterating the antitone map k -> base & ~(k A) to its
+    unique fixpoint, then suppresses all later boxes with one vectorised
+    IoU pass. On a card each fixpoint test would be a host sync.
+  * CUDA tensors sort their rows here (``sort_rows``) and launch the CUDA
+    kernel (``ops/cuda/nms_kernel``, ``csrc/nms.cu``): one launch writes
+    the IoU bitmask of every pair, a second walks each row's greedy order
+    on the device. The host never waits; the outputs are the blocked
+    form's, bit for bit.
 
 Shapes are static: (M, N) in, (M, max_out) out with a validity mask.
 ``batched_soft_nms`` ports JAX's ``soft_nms`` loop in the same batched form.
@@ -23,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from detectorch_tpu_torch.ops.boxes import bbox_overlaps
+from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
 
 NEG_INF = float("-inf")
 
@@ -44,28 +52,52 @@ def batched_nms(boxes, scores, max_out: int, iou_thresh: float, valid=None,
         score space; valid: optional (M, N) bool — False entries can never
         be selected nor suppress.
       max_out: number of output slots per row; iou_thresh: suppress when
-        IoU >= thresh.
+        IoU >= thresh; block: the blocked form's block (CPU tensors).
 
     Returns:
       keep_idx: (M, max_out) int64 indices into N (0 for padded slots).
       keep_valid: (M, max_out) bool.
+
+    CPU tensors run ``batched_nms_blocked``; CUDA tensors the kernel, with
+    no host sync (module docstring).
     """
+    if boxes.device.type == "cpu":
+        return batched_nms_blocked(boxes, scores, max_out, iou_thresh, valid, block)
+    return batched_nms_kernel(*sort_rows(boxes, scores, valid), iou_thresh, max_out)
+
+
+def sort_rows(boxes, scores, valid=None):
+    """Each row by descending score with ties toward the HIGHER input index
+    (a stable descending sort of the reversed rows, indices mapped back).
+    Returns the sorted boxes (M, N, 4) fp32, ``alive`` (M, N) (a valid
+    entry with a score above -inf: the others can neither keep nor
+    suppress) and the permutation ``order`` (M, N) int64 back to input
+    indices, all contiguous whatever the inputs' strides (postprocess's
+    (image x class) rows of one image are a transposed view)."""
     boxes = boxes.float()
     scores = scores.float()
     if valid is not None:
         scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-    m, n_in = scores.shape
-    n = -(-n_in // block) * block
-    if n != n_in:
-        boxes = torch.nn.functional.pad(boxes, (0, 0, 0, n - n_in))
-        scores = torch.nn.functional.pad(scores, (0, n - n_in), value=NEG_INF)
-
-    # descending score with ties toward the HIGHER input index: a stable
-    # descending sort of the reversed rows, indices mapped back
+    m, n = scores.shape
     sort_scores, rev = torch.sort(scores.flip(-1), dim=-1, descending=True, stable=True)
     order = (n - 1) - rev
     sboxes = torch.gather(boxes, 1, order[..., None].expand(m, n, 4))
-    alive = sort_scores > NEG_INF  # padded/invalid can neither keep nor suppress
+    return sboxes.contiguous(), (sort_scores > NEG_INF).contiguous(), order.contiguous()
+
+
+def batched_nms_blocked(boxes, scores, max_out: int, iou_thresh: float, valid=None,
+                        block: int = 128):
+    """``batched_nms``'s plain version, JAX's blocked fixpoint form (module
+    docstring): the path of CPU tensors, and the reference the kernel is
+    held to on the card. Same arguments and outputs."""
+    m, n_in = scores.shape
+    n = -(-n_in // block) * block
+    if n != n_in:  # padded entries are dead
+        boxes = torch.nn.functional.pad(boxes, (0, 0, 0, n - n_in))
+        scores = torch.nn.functional.pad(scores, (0, n - n_in), value=NEG_INF)
+        if valid is not None:
+            valid = torch.nn.functional.pad(valid, (0, n - n_in), value=False)
+    sboxes, alive, order = sort_rows(boxes, scores, valid)
 
     suppressed = torch.zeros((m, n), dtype=torch.bool, device=boxes.device)
     keep = torch.zeros_like(suppressed)

@@ -12,10 +12,7 @@ with the card's name and power limit:
     valid one) and on all 128 slots: ms and the peak memory it adds;
   * the train-count proposals (``models.detector.fpn_proposals``: the decode,
     one batched NMS over 40 rows of up to 12,032 boxes, the collect): ms,
-    the NMS's fixpoint tests (one host sync each), and the ms of its dense
-    IoU suppression passes alone (its ``bbox_overlaps`` calls of each
-    128-box block against every later box, on boxes of the same shapes
-    (the levels' score-sorted anchors), without the fixpoint).
+    and the NMS kernel's launches a call (2: ``ops/cuda/nms_kernel``).
 
 Prints one JSON line per measurement.
 """
@@ -46,8 +43,8 @@ def main() -> int:
         level_anchors,
         rpn_feature_levels,
     )
-    from detectorch_tpu_torch.ops import nms as nms_mod
-    from detectorch_tpu_torch.ops.boxes import bbox_overlaps
+    from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
+    from detectorch_tpu_torch.tools import profile_e2e_train as pe
     from detectorch_tpu_torch.train import e2e
     from detectorch_tpu_torch.train.train_step import device_images
 
@@ -106,46 +103,10 @@ def main() -> int:
         return fpn_proposals(cfg, probs, deltas, levels, info[:, 0], info[:, 1], info[:, 2],
                              pe.TRAIN_PRE, pe.TRAIN_POST, cache)
 
-    tests = []
-    equal = torch.equal
-
-    def counting_equal(x, y):
-        tests.append(1)
-        return equal(x, y)
-
-    nms_mod.torch.equal = counting_equal
-    try:
-        ms, gib = timed(proposals)
-    finally:
-        nms_mod.torch.equal = equal
+    launches = batched_nms_kernel.launches
+    ms, gib = timed(proposals)
     emit("fpn_proposals", pre=pe.TRAIN_PRE, post=pe.TRAIN_POST, ms=ms, peak_added_gib=gib,
-         fixpoint_tests_per_call=len(tests) / (ITERS + 1))
-
-    # the NMS's suppression passes alone, over its own sorted inputs
-    boxes = []
-    for p, lvl in zip(probs, levels):
-        k = min(pe.TRAIN_PRE, p[0].numel())
-        _, idx = nms_mod.topk_stable(p.reshape(bsz, -1), k)
-        a = level_anchors(cfg, p.shape[1], p.shape[2], lvl, dev, cache)[idx]
-        boxes.append(torch.nn.functional.pad(a, (0, 0, 0, pe.TRAIN_PRE - k)))
-    boxes = torch.stack(boxes, 1).reshape(-1, pe.TRAIN_PRE, 4)
-    n = -(-pe.TRAIN_PRE // 128) * 128
-    boxes = torch.nn.functional.pad(boxes, (0, 0, 0, n - pe.TRAIN_PRE))
-
-    alive = torch.ones(boxes.shape[:2], dtype=torch.bool, device=dev)
-
-    def suppress_passes():
-        suppressed = torch.zeros_like(alive)
-        for start in range(0, n - 128, 128):
-            stop = start + 128
-            hits = (alive[:, start:stop, None]
-                    & (bbox_overlaps(boxes[:, start:stop], boxes[:, stop:])
-                       >= cfg.rpn.nms_thresh)).any(dim=1)
-            suppressed[:, stop:] |= hits
-
-    ms, gib = timed(suppress_passes)
-    emit("nms_suppression_passes", rows=int(boxes.shape[0]), width=n, blocks=n // 128, ms=ms,
-         peak_added_gib=gib)
+         nms_launches_per_call=(batched_nms_kernel.launches - launches) / (ITERS + 1))
     return 0
 
 

@@ -144,3 +144,25 @@ def test_no_spans_reads_nothing(tmp_path):
     assert spans_mod.Spans(trace).requests == 0
     for name in _new_metrics():
         assert read_layer_metric(name, {"trace": trace}) is None, name
+
+
+@pytest.mark.parametrize("kernels", [0, 8])
+def test_the_nms_metrics_read_the_kernels(tmp_path, kernels):
+    # nms_launches and nms_kernel_ms count the kernels named detectorch_nms
+    # inside the window, per request; a trace without them reads nothing
+    events = [{"name": "bench_window", "ph": "X", "cat": "user_annotation", "ts": 0.0,
+               "dur": 1000.0},
+              {"name": "void at::native::elementwise_kernel<128, 4>", "ph": "X",
+               "cat": "kernel", "ts": 5.0, "dur": 40.0}]
+    events += [{"name": f"(anonymous namespace)::detectorch_nms_{('mask', 'scan')[k % 2]}"
+                        "_kernel(float4 const*, int)", "ph": "X", "cat": "kernel",
+                "ts": 100.0 + 10 * k, "dur": 2.5} for k in range(kernels)]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    layer = {"trace": Trace(str(path), "bench_window"), "requests": 2}
+    launches = read_layer_metric("nms_launches.infer", layer)
+    ms = read_layer_metric("nms_kernel_ms.infer", layer)
+    if kernels:
+        assert launches == 4.0 and ms == pytest.approx(0.01)
+    else:
+        assert launches is None and ms is None
