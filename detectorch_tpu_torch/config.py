@@ -101,7 +101,7 @@ class ModelConfig:
     """One README model row == one ModelConfig (reference notebook cell args)."""
 
     name: str = "e2e_mask_rcnn_R-50-FPN_2x"
-    arch: str = "resnet50"           # 'resnet50' | 'resnet101'
+    arch: str = "resnet50"           # 'resnet50' | 'resnet101' | 'resnext101_64x4d'
     use_fpn: bool = True
     use_rpn: bool = True
     use_mask: bool = False
@@ -300,6 +300,12 @@ PRESETS = {
     ),
     "e2e_mask_rcnn_R-101-FPN_2x": _fpn(
         "e2e_mask_rcnn_R-101-FPN_2x", "resnet101", True, True
+    ),
+    # The port's own (the JAX package has no ResNeXt): Detectron's
+    # 12_2017_baselines/e2e_mask_rcnn_X-101-64x4d-FPN_1x, the R-101-FPN
+    # Mask R-CNN on a ResNeXt-101 trunk of 64 groups of width 4.
+    "e2e_mask_rcnn_X-101-64x4d-FPN_1x": _fpn(
+        "e2e_mask_rcnn_X-101-64x4d-FPN_1x", "resnext101_64x4d", True, True
     ),
     # Keypoint R-CNN (person-only, 17 COCO keypoints). Beyond-parity: the
     # reference ships the keypoint evaluator and dataset metadata but no

@@ -1,10 +1,17 @@
-"""Functional ResNet-50/101 backbone, caffe2-Detectron flavour.
+"""Functional ResNet-50/101 and ResNeXt-101 backbones, caffe2-Detectron flavour.
 
 Port of ``detectorch_tpu/models/resnet.py``:
 
   * the bottleneck's stride 2 sits on the 1x1 ``branch2a`` conv (and the
     ``branch1`` projection), NOT on the 3x3 — torchvision's Bottleneck puts
     it on the 3x3, so it is not reused;
+  * ResNeXt (``resnext101_64x4d``, Xie et al., arXiv:1611.05431, as
+    Detectron's ``bottleneck_transformation`` with ``NUM_GROUPS`` 64,
+    ``WIDTH_PER_GROUP`` 4 and ``STRIDE_1X1`` False; the port's own, the JAX
+    package has none): the 3x3 ``branch2b`` is grouped and carries the
+    stride, and the inner width is ``groups * width * 2**s`` at stage s
+    (res2 = 0) instead of ``cout // 4``; each grouped conv runs inside a
+    ``grouped_conv`` span;
   * BatchNorm is a frozen affine (``*_bn_s`` / ``*_bn_b``);
   * explicit symmetric paddings; the max-pool pads with -inf.
 
@@ -23,9 +30,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
+from detectorch_tpu_torch.utils.profiling import span
+
+STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),
+                "resnext101_64x4d": (3, 4, 23, 3)}
 # stage name -> (caffe2 prefix, out channels of branch2c)
 STAGES = (("res2", 256), ("res3", 512), ("res4", 1024), ("res5", 2048))
+# ResNeXt: arch -> (groups, width per group at res2) of the grouped 3x3
+GROUPS = {"resnext101_64x4d": (64, 4)}
 
 Params = Dict[str, torch.Tensor]
 
@@ -40,9 +52,9 @@ def to_nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-def conv(x, w, stride: int = 1, pad: int = 0):
+def conv(x, w, stride: int = 1, pad: int = 0, groups: int = 1):
     """NCHW conv with explicit symmetric padding; w OIHW, cast to x's dtype."""
-    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=pad)
+    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=pad, groups=groups)
 
 
 def affine(x, s, b):
@@ -60,22 +72,46 @@ def max_pool_3x3s2(x):
     return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
 
 
-def bottleneck(params: Params, x, prefix: str, stride: int, has_proj: bool):
-    """res{s}_{i}: branch2a(1x1, stride)+bn+relu -> branch2b(3x3)+bn+relu ->
-    branch2c(1x1)+bn, plus the branch1 projection; relu(sum). NCHW."""
+def groups_of(arch: str) -> int:
+    """The groups of the arch's 3x3 convs: 1 for ResNet."""
+    return GROUPS[arch][0] if arch in GROUPS else 1
+
+
+def inner_width(arch: str, stage_idx: int) -> int:
+    """The bottleneck's inner width at stage `stage_idx` (res2 = 0)."""
+    if arch in GROUPS:
+        groups, width = GROUPS[arch]
+        return groups * width * 2 ** stage_idx
+    return STAGES[stage_idx][1] // 4
+
+
+def bottleneck(params: Params, x, prefix: str, stride: int, has_proj: bool, groups: int = 1):
+    """res{s}_{i}: branch2a(1x1)+bn+relu -> branch2b(3x3)+bn+relu ->
+    branch2c(1x1)+bn, plus the branch1 projection; relu(sum). NCHW. The
+    stride sits on branch2a for ResNet (groups 1), on the grouped branch2b
+    for ResNeXt."""
     shortcut = x
     if has_proj:
         shortcut = conv_bn(params, x, f"{prefix}_branch1", stride=stride)
-    out = F.relu(conv_bn(params, x, f"{prefix}_branch2a", stride=stride))
-    out = F.relu(conv_bn(params, out, f"{prefix}_branch2b", stride=1, pad=1))
+    if groups == 1:
+        out = F.relu(conv_bn(params, x, f"{prefix}_branch2a", stride=stride))
+        out = F.relu(conv_bn(params, out, f"{prefix}_branch2b", stride=1, pad=1))
+    else:
+        out = F.relu(conv_bn(params, x, f"{prefix}_branch2a"))
+        with span("grouped_conv"):
+            out = conv(out, params[f"{prefix}_branch2b_w"], stride, 1, groups)
+        out = F.relu(affine(out, params[f"{prefix}_branch2b_bn_s"],
+                            params[f"{prefix}_branch2b_bn_b"]))
     out = conv_bn(params, out, f"{prefix}_branch2c")
     return F.relu(out + shortcut)
 
 
-def stage(params: Params, x, name: str, n_blocks: int, stride: int):
-    for i in range(n_blocks):
+def stage(params: Params, x, arch: str, stage_idx: int, stride: int):
+    """Every block of stage `stage_idx` (res2 = 0) of `arch`, NCHW."""
+    name, groups = STAGES[stage_idx][0], groups_of(arch)
+    for i in range(STAGE_BLOCKS[arch][stage_idx]):
         x = bottleneck(params, x, f"{name}_{i}", stride=stride if i == 0 else 1,
-                       has_proj=(i == 0))
+                       has_proj=(i == 0), groups=groups)
     return x
 
 
@@ -88,28 +124,26 @@ def stem(params: Params, x):
 
 def c4_body(params: Params, x, arch: str = "resnet50"):
     """conv1..res4 on NHWC x: the C4 conv body, NHWC (N, H/16, W/16, 1024)."""
-    blocks = STAGE_BLOCKS[arch]
     x = stem(params, to_nchw(x).contiguous(memory_format=torch.channels_last))
-    x = stage(params, x, "res2", blocks[0], stride=1)
-    x = stage(params, x, "res3", blocks[1], stride=2)
-    return to_nhwc(stage(params, x, "res4", blocks[2], stride=2))
+    x = stage(params, x, arch, 0, stride=1)
+    x = stage(params, x, arch, 1, stride=2)
+    return to_nhwc(stage(params, x, arch, 2, stride=2))
 
 
 def c5_head(params: Params, x, arch: str = "resnet50", stride: int = 2):
     """res5 on NHWC roi features (the C4 box and mask conv head):
     (R, 14, 14, 1024) -> (R, 7, 7, 2048) NHWC."""
     x = to_nchw(x).contiguous(memory_format=torch.channels_last)
-    return to_nhwc(stage(params, x, "res5", STAGE_BLOCKS[arch][3], stride=stride))
+    return to_nhwc(stage(params, x, arch, 3, stride=stride))
 
 
 def multilevel_body(params: Params, x, arch: str = "resnet50"):
     """conv1..res5 on NHWC x, returning NHWC {c2, c3, c4, c5}."""
-    blocks = STAGE_BLOCKS[arch]
     x = stem(params, to_nchw(x).contiguous(memory_format=torch.channels_last))
-    c2 = stage(params, x, "res2", blocks[0], stride=1)
-    c3 = stage(params, c2, "res3", blocks[1], stride=2)
-    c4 = stage(params, c3, "res4", blocks[2], stride=2)
-    c5 = stage(params, c4, "res5", blocks[3], stride=2)
+    c2 = stage(params, x, arch, 0, stride=1)
+    c3 = stage(params, c2, arch, 1, stride=2)
+    c4 = stage(params, c3, arch, 2, stride=2)
+    c5 = stage(params, c4, arch, 3, stride=2)
     return {"c2": to_nhwc(c2), "c3": to_nhwc(c3), "c4": to_nhwc(c4), "c5": to_nhwc(c5)}
 
 
@@ -121,7 +155,8 @@ def last_block_name(arch: str, stage_idx: int) -> str:
 
 # ---------------------------------------------------------------------------
 # Random init: numpy, blob for blob equal to detectorch_tpu.models.resnet
-# (HWIO conv weights, as the JAX package stores them)
+# (HWIO conv weights, as the JAX package stores them); ResNeXt's grouped
+# 3x3 is (3, 3, inner // groups, inner)
 # ---------------------------------------------------------------------------
 
 
@@ -153,13 +188,13 @@ def init_resnet_params(
     n_stages = 4 if include_c5 else 3
     for si in range(n_stages):
         name, out_ch = STAGES[si]
-        mid = out_ch // 4
+        mid = inner_width(arch, si)
         for i in range(blocks[si]):
             prefix = f"{name}_{i}"
             if i == 0:
                 add_conv_bn(f"{prefix}_branch1", 1, 1, in_ch, out_ch)
             add_conv_bn(f"{prefix}_branch2a", 1, 1, in_ch if i == 0 else out_ch, mid)
-            add_conv_bn(f"{prefix}_branch2b", 3, 3, mid, mid)
+            add_conv_bn(f"{prefix}_branch2b", 3, 3, mid // groups_of(arch), mid)
             add_conv_bn(f"{prefix}_branch2c", 1, 1, mid, out_ch)
         in_ch = out_ch
     return p

@@ -77,8 +77,18 @@ def test_presets_equal(preset):
     assert dataclasses.asdict(got) == dataclasses.asdict(exp)
 
 
+# presets the port has and the JAX package lacks
+PORT_ONLY = {"e2e_mask_rcnn_X-101-64x4d-FPN_1x"}
+
+
 def test_config_defaults_and_constants():
-    assert sorted(tconfig.PRESETS) == sorted(jconfig.PRESETS)
+    assert set(jconfig.PRESETS) <= set(tconfig.PRESETS)
+    assert set(tconfig.PRESETS) - set(jconfig.PRESETS) == PORT_ONLY
+    # ResNeXt-101 differs from the R-101 FPN Mask R-CNN in its trunk alone
+    x101 = dataclasses.asdict(tconfig.PRESETS["e2e_mask_rcnn_X-101-64x4d-FPN_1x"])
+    r101 = dataclasses.asdict(tconfig.PRESETS["e2e_mask_rcnn_R-101-FPN_2x"])
+    assert {k for k in x101 if x101[k] != r101[k]} == {"name", "arch"}
+    assert x101["arch"] == "resnext101_64x4d"
     for name in ("TestConfig", "SolverConfig", "SamplerConfig", "RPNConfig", "ModelConfig"):
         assert dataclasses.asdict(getattr(tconfig, name)()) == \
             dataclasses.asdict(getattr(jconfig, name)()), name

@@ -81,7 +81,7 @@ def test_synthetic_sets_equal_the_harness(sets, kind):
 def test_configs_and_families_equal_the_harness():
     import dataclasses
 
-    for preset in PW.PRESETS:
+    for preset in AH.PRESETS:  # the harness's: the port's own ResNeXt has no fit
         assert PW.family_of(preset) == AH.family_of(preset)
         for shapes in ("harness", "production"):
             ours, theirs = PW.harness_cfg(preset, shapes), AH.harness_cfg(preset, shapes)
