@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 Phases — each passes or the script exits non-zero:
 
   1. the device: nvidia-smi's name and power limit, torch's device name;
-  2. the build of both RoIAlign kernels and the NMS kernel from csrc/ (one
-     nvcc each, started together), with its time;
+  2. the build of both RoIAlign kernels, the NMS kernel and the conv
+     epilogue kernels from csrc/ (one nvcc each, started together), with
+     its time;
   3. the forward kernel against its plain PyTorch version on the card, at
      the inference and eval paths' shapes (batch 8 pyramids at 832x1344 and
      at 1344x832, C = 256; 1000 rois per image at 7x7 and 108 at 14x14),
@@ -188,7 +189,22 @@ Phases — each passes or the script exits non-zero:
      time, each stage's (the profiler's), the mask's bound, the blocked
      version's time and torchvision's batched_nms where installed; then an
      FPN and a C4 request at batch 8 (score_thresh 0) equal in every output
-     to the same request with the blocked version forced, 4 launches each.
+     to the same request with the blocked version forced, 4 launches each;
+ 30. the conv epilogue kernels (csrc/conv_epilogue.cu): the epilogue at the
+     main path's shapes (R-50 res2 branch2a at batch 8, 208x336x64; res4
+     branch2c with its shortcut, 52x84x1024; X-101's grouped res4
+     branch2b, 1024 channels; C4's res5 branch2c over 8000 rois, 7x7x2048
+     with its shortcut), bf16 and fp32, equal to its mirror bit for bit,
+     one launch a call, its time by CUDA events beside its bound (y read
+     and written once, the shortcut read once, at 3.35 TB/s), the mirror's
+     time and the unfused chain's (affine, residual add, relu) that it
+     replaced; the weight fold over X-101's trunk, equal to its mirror bit
+     for bit, timed beside the casts it replaced and its bound; then one
+     warm request of each cell's configuration (R-50 FPN, R-50 C4,
+     X-101 FPN; batch 8, 832x1344, bf16) with the epilogue's and the
+     fold's launches counted against the count from the code, and the
+     backbone fused against unfused (bf16, and fp32 with TF32 off at batch
+     2).
 
 Every phase that counts the RoIAlign launches of a run sets the NMS
 kernel's count to 0 beside them and checks it too: 4 launches a request or
@@ -197,7 +213,8 @@ eval batch (the proposal and the per-class call), 2 an e2e training step
 
 The line before the last is a JSON summary of the kernels (the RoIAlign
 kernels' times and bounds are those of the random bf16 7x7 call, the NMS
-kernel's those of phase 29's FPN proposal call; "calls" lists every timed
+kernel's those of phase 29's FPN proposal call, the conv epilogue's those
+of phase 30's res2 call, with its weight fold under "fold"; "calls" lists every timed
 call, FPN, C4 and the keypoint calls; "launches" counts phase 10's three steps,
 "launches_by_path" each path's timed run, per rank for phases 23-25 (the NMS
 kernel's for 23-24), the demo's counted run for "demo" and "demo_keypoint",
@@ -432,6 +449,7 @@ def phase_build():
     """Both kernels (one nvcc each) and the native RLE (the host C++
     compiler), started together; returns the RLE library's build seconds."""
     from detectorch_tpu_torch.eval import rle_native
+    from detectorch_tpu_torch.ops.cuda.conv_epilogue_kernel import conv_epilogue
     from detectorch_tpu_torch.ops.cuda.nms_kernel import batched_nms_kernel
     from detectorch_tpu_torch.ops.cuda.roi_align_kernel import roi_align_bwd, roi_align_fwd
 
@@ -441,7 +459,7 @@ def phase_build():
         return rle_native.library.path, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    kernels = (roi_align_fwd, roi_align_bwd, batched_nms_kernel)
+    kernels = (roi_align_fwd, roi_align_bwd, batched_nms_kernel, conv_epilogue)
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         rle_build = pool.submit(build_rle)
         paths = list(pool.map(lambda k: k.build(), kernels))
@@ -3480,6 +3498,192 @@ def phase_nms(device, smi, tag="29 nms"):
     return rows
 
 
+# phase 30: (name, NCHW shape, with the shortcut) of the epilogue's calls, relu on
+EPILOGUE_SHAPES = (
+    ("r50_res2_branch2a", (BATCH, 64, HEIGHT // 4, WIDTH // 4), False),
+    ("r50_res4_branch2c_shortcut", (BATCH, 1024, HEIGHT // 16, WIDTH // 16), True),
+    ("x101_res4_branch2b", (BATCH, 1024, HEIGHT // 16, WIDTH // 16), False),
+    ("c4_res5_branch2c_shortcut", (8000, 2048, 7, 7), True),
+)
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's device memory
+X101_PRESET = "e2e_mask_rcnn_X-101-64x4d-FPN_1x"
+# epilogue launches a request, from the code: the stem, three a bottleneck
+# (a projection's bias joins its block's closing epilogue), eight FPN convs
+# (four laterals, four outputs); C4: res5 on the box rois and on the mask
+# rois, three blocks each
+EPILOGUE_REQUEST_LAUNCHES = {PRESET: 1 + 16 * 3 + 8, C4_PRESET: 1 + 13 * 3 + 2 * 3 * 3,
+                             X101_PRESET: 1 + 33 * 3 + 8}
+# weight folds a request: every frozen-BN conv, projections included
+FOLD_REQUEST_LAUNCHES = {PRESET: 1 + 16 * 3 + 4, C4_PRESET: 1 + 13 * 3 + 3 + 2 * (3 * 3 + 1),
+                         X101_PRESET: 1 + 33 * 3 + 4}
+# fused against unfused backbone: fp32 (TF32 off) is the same sum in another
+# order (W*s rounded once in place of the product); bf16 rounds the weight
+# and each epilogue once instead of twice or three times
+BACKBONE_FP32_REL, BACKBONE_BF16_REL = 1e-4, 0.1
+
+
+def frozen_bn_convs(params):
+    """(weight, scale) of every frozen-BN conv in `params`."""
+    return [(params["conv1_w" if n == "res_conv1_bn_s" else n[: -len("bn_s")] + "w"], params[n])
+            for n in params if n.endswith("_bn_s")]
+
+
+@contextlib.contextmanager
+def unfused_trunk():
+    """The trunk's unfused form (conv, affine, add, relu as operators) while
+    the block runs, as grad mode would have it."""
+    from detectorch_tpu_torch.models import fpn, resnet
+
+    saved = resnet.fused, fpn.fused
+    resnet.fused = fpn.fused = lambda: False
+    try:
+        yield
+    finally:
+        resnet.fused, fpn.fused = saved
+
+
+def phase_conv_epilogue(device, smi, tag="30 epilogue", shapes=EPILOGUE_SHAPES, timing=True,
+                        presets=(PRESET, C4_PRESET, X101_PRESET), batch=BATCH, height=HEIGHT,
+                        width=WIDTH, fp32_batch=2):
+    """Phase 30 (see the module docstring). Returns the epilogue's rows, the
+    fold's row and each preset's launches."""
+    import torch
+
+    from detectorch_tpu_torch.checkpoint.convert import params_from_jax, params_to_device
+    from detectorch_tpu_torch.config import PRESETS, TestConfig
+    from detectorch_tpu_torch.models import detector as det
+    from detectorch_tpu_torch.models import resnet
+    from detectorch_tpu_torch.models.detector import init_params, make_inference_fn
+    from detectorch_tpu_torch.ops.cuda.conv_epilogue_kernel import (conv_epilogue,
+                                                                    epilogue_mirror, fold_mirror,
+                                                                    fold_scale)
+
+    cuda = device.type == "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(30)
+
+    def channels_last(t):
+        return t.contiguous(memory_format=torch.channels_last)
+
+    rows = []
+    for name, shape, residual in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            y = channels_last((torch.randn(shape, generator=gen, device=device) * 2).to(dtype))
+            r = channels_last(torch.randn(shape, generator=gen, device=device).to(dtype)) \
+                if residual else None
+            b = torch.randn(shape[1], generator=gen, device=device) * 0.5
+            exp = epilogue_mirror(y.clone(), b, r, True)
+            before = conv_epilogue.launches
+            got = conv_epilogue(y.clone(), b, r, True)
+            if cuda:
+                torch.cuda.synchronize()
+                check(conv_epilogue.launches == before + 1,
+                      f"{name}: {conv_epilogue.launches - before} epilogue launches, expected 1")
+            check(torch.equal(got, exp), f"{name} {dtype}: the epilogue differs from its mirror")
+            del got, exp
+            if dtype != torch.bfloat16:
+                continue  # the main path's type is timed; fp32 is checked only
+            row = {"call": name, "shape": list(shape), "residual": residual,
+                   "dtype": "bfloat16"}
+            if timing and cuda:
+                ones = torch.ones_like(b)
+
+                def chain():
+                    out = resnet.affine(y, ones, b)
+                    return torch.relu(out + r if residual else out)
+
+                row["bytes"] = y.numel() * y.element_size() * (3 if residual else 2)
+                row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+                row["ms"] = cuda_time_ms(lambda: conv_epilogue(y, b, r, True), iters=20)
+                row["share"] = row["bound_ms"] / row["ms"]
+                row["mirror_ms"] = cuda_time_ms(lambda: epilogue_mirror(y, b, r, True), iters=5)
+                row["unfused_ms"] = cuda_time_ms(chain, iters=5)
+                log(f"[{tag}] {name} {tuple(shape)} bf16: equal to the mirror (and fp32); "
+                    f"kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes "
+                    f"{row['bytes'] / 1e6:.1f} MB), share {row['share']:.3f}; mirror "
+                    f"{row['mirror_ms']:.4f} ms, unfused chain {row['unfused_ms']:.4f} ms on {smi}")
+            rows.append(row)
+            del y, r
+    torch.cuda.empty_cache() if cuda else None
+
+    # the weight fold over X-101's trunk: what a request folds
+    trunk = params_to_device(params_from_jax(resnet.init_resnet_params("resnext101_64x4d")),
+                             device)
+    convs = frozen_bn_convs(trunk)
+    for w, s in convs:
+        check(torch.equal(fold_scale(w, s, torch.bfloat16), fold_mirror(w, s, torch.bfloat16)),
+              "the weight fold differs from its mirror")
+    elements = sum(w.numel() for w, _ in convs)
+    fold = {"convs": len(convs), "elements": elements,
+            "bound_ms": elements * 6 / HBM_BYTES_PER_S * 1e3}
+    if timing and cuda:
+        fold["ms"] = cuda_time_ms(lambda: [fold_scale(w, s, torch.bfloat16) for w, s in convs],
+                                  iters=10)
+        fold["cast_ms"] = cuda_time_ms(lambda: [w.to(torch.bfloat16) for w, _ in convs],
+                                       iters=10)
+        log(f"[{tag}] fold of X-101's {len(convs)} frozen-BN conv weights ({elements / 1e6:.1f} "
+            f"M elements): equal to the mirror; {fold['ms']:.4f} ms a request, bound "
+            f"{fold['bound_ms']:.4f} ms; the bf16 casts it replaced {fold['cast_ms']:.4f} ms")
+    del trunk, convs
+
+    launches = {}
+    test_cfg = TestConfig()
+    for preset in presets:
+        cfg = PRESETS[preset]
+        weights = c4_weights(cfg) if preset == C4_PRESET else init_params(cfg, seed=0)
+        params = params_to_device(params_from_jax(weights), device)
+        fwd = make_inference_fn(cfg, test_cfg)
+        batch_args = _batch(gen, batch, height, width, device)
+        fwd(params, *batch_args)
+        conv_epilogue.launches = fold_scale.launches = 0
+        fwd(params, *batch_args)
+        if cuda:
+            torch.cuda.synchronize()
+        launches[preset] = {"detectorch_conv_epilogue": conv_epilogue.launches,
+                            "detectorch_fold_scale": fold_scale.launches}
+        if cuda:
+            check(launches[preset] == {
+                "detectorch_conv_epilogue": EPILOGUE_REQUEST_LAUNCHES[preset],
+                "detectorch_fold_scale": FOLD_REQUEST_LAUNCHES[preset]},
+                f"{preset}: launches {launches[preset]} a request, expected "
+                f"{EPILOGUE_REQUEST_LAUNCHES[preset]} and {FOLD_REQUEST_LAUNCHES[preset]}")
+        gaps = {}
+        for dtype, n, rel in (("bfloat16", batch, BACKBONE_BF16_REL),
+                              ("float32", fp32_batch, BACKBONE_FP32_REL)):
+            c = cfg.replace(compute_dtype=dtype)
+            images = batch_args[0][:n]
+            with torch.inference_mode(), tf32_off():
+                got = det.backbone_features(params, c, images)
+                with unfused_trunk():
+                    exp = det.backbone_features(params, c, images)
+            got, exp = (got, exp) if isinstance(got, list) else ([got], [exp])
+            gaps[dtype] = max((a.float() - e.float()).abs().max().item()
+                              / e.float().abs().max().item() for a, e in zip(got, exp))
+            check(gaps[dtype] <= rel, f"{preset} {dtype}: the fused backbone is "
+                                      f"{gaps[dtype]:.3g} from the unfused, limit {rel}")
+        launches[preset]["backbone_gap"] = gaps
+        log(f"[{tag}] {preset} warm request at batch {batch}: epilogue launches "
+            f"{launches[preset]['detectorch_conv_epilogue']}, weight folds "
+            f"{launches[preset]['detectorch_fold_scale']}; backbone fused against unfused: "
+            f"bf16 {gaps['bfloat16']:.3g}, fp32 (TF32 off, batch {fp32_batch}) "
+            f"{gaps['float32']:.3g} of the largest value")
+        del params
+        torch.cuda.empty_cache() if cuda else None
+    return rows, fold, launches
+
+
+@contextlib.contextmanager
+def tf32_off():
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def per_kernel(launches, kernel):
     """One kernel's counts of a nested {path: counts} tree."""
     if isinstance(launches, dict) and kernel in launches:
@@ -3533,6 +3737,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     nms_calls = phase_nms(device, smi)
     fpn_nms = next(r for r in nms_calls if r["call"] == "fpn_proposals")
+    torch.cuda.empty_cache()
+    epilogue_calls, fold, epilogue_launches = phase_conv_epilogue(device, smi)
+    res2_epilogue = epilogue_calls[0]
     parallel_launches = {
         "world1_nccl_e2e_training": world1["launches"],
         "world2_e2e_training": [r["step_launches"] for r in world2],
@@ -3620,6 +3827,19 @@ def main() -> int:
         **{k: fpn_nms[k] for k in ("ms", "plain_ms", "library_ms", "bound_by")},
         "bound_ms": fpn_nms["mask_bound_ms"],
         "calls": nms_calls,
+    }, {
+        "name": "detectorch_conv_epilogue",
+        "route": "cuda",
+        "source": f"{source}/conv_epilogue.cu",
+        "replaces": None,  # the trunk's affine, residual add and relu operators; no Pallas kernel
+        "launches_by_path": epilogue_launches,
+        # R-50 res2 branch2a at batch 8; library_ms: the unfused chain it replaced
+        **{k: res2_epilogue[k] for k in ("ms", "bound_ms", "share")},
+        "plain_ms": res2_epilogue["mirror_ms"],
+        "library_ms": res2_epilogue["unfused_ms"],
+        "bound_by": "bytes",
+        "fold": fold,
+        "calls": epilogue_calls,
     }]
     parallel = {
         "world1_nccl": {k: world1[k] for k in ("ms_per_step", "plain_ms_per_step",

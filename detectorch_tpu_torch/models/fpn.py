@@ -4,6 +4,10 @@ Port of ``detectorch_tpu/models/fpn.py``, same Detectron blob names:
 
   fpn_inner_res{2,3,4}_{last}_sum_lateral_{w,b}, fpn_inner_res5_{last}_sum_{w,b}
   fpn_res{s}_{last}_sum_{w,b}
+
+With grad mode off, each conv's bias is added in place by the conv epilogue
+kernel (``ops/cuda/conv_epilogue_kernel``, no activation); with it on, by a
+broadcast add.
 """
 
 from __future__ import annotations
@@ -13,7 +17,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from detectorch_tpu_torch.models.resnet import conv, last_block_name, to_nchw, to_nhwc
+from detectorch_tpu_torch.models.resnet import conv, fused, last_block_name, to_nchw, to_nhwc
+from detectorch_tpu_torch.ops.cuda.conv_epilogue_kernel import conv_epilogue
 
 
 def _lateral_name(arch: str, stage_idx: int) -> str:
@@ -36,23 +41,29 @@ def subsample2x(x):
     return x[:, ::2, ::2, :]
 
 
+def conv_bias(x, w, b, pad: int = 0):
+    """NCHW conv + bias: the epilogue kernel with grad mode off."""
+    y = conv(x, w, pad=pad)
+    if not fused():
+        return y + b.to(y.dtype)[:, None, None]
+    return conv_epilogue(y, b, relu=False)
+
+
 def fpn_neck(params, feats: Dict[str, torch.Tensor], arch: str = "resnet50"):
     """feats: NHWC {c2..c5}. Returns NHWC [P2, P3, P4, P5], finest first."""
     cs = [feats["c2"], feats["c3"], feats["c4"], feats["c5"]]
     lateral = []
     for i, c in enumerate(cs):
         name = _lateral_name(arch, i)
-        y = conv(to_nchw(c), params[f"{name}_w"]) + params[f"{name}_b"].to(c.dtype)[:, None, None]
-        lateral.append(to_nhwc(y))
+        lateral.append(to_nhwc(conv_bias(to_nchw(c), params[f"{name}_w"], params[f"{name}_b"])))
     # top-down pass
     for i in range(len(lateral) - 2, -1, -1):
         lateral[i] = lateral[i] + upsample2x_nearest(lateral[i + 1])
     outs = []
     for i, lat in enumerate(lateral):
         name = _output_name(arch, i)
-        y = conv(to_nchw(lat), params[f"{name}_w"], pad=1) \
-            + params[f"{name}_b"].to(lat.dtype)[:, None, None]
-        outs.append(to_nhwc(y))
+        outs.append(to_nhwc(conv_bias(to_nchw(lat), params[f"{name}_w"], params[f"{name}_b"],
+                                      pad=1)))
     return outs
 
 

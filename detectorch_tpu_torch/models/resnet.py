@@ -12,7 +12,13 @@ Port of ``detectorch_tpu/models/resnet.py``:
     stride, and the inner width is ``groups * width * 2**s`` at stage s
     (res2 = 0) instead of ``cout // 4``; each grouped conv runs inside a
     ``grouped_conv`` span;
-  * BatchNorm is a frozen affine (``*_bn_s`` / ``*_bn_b``);
+  * BatchNorm is a frozen affine (``*_bn_s`` / ``*_bn_b``). With grad mode
+    off (all of inference) it runs fused: the scale folded into the conv's
+    weight per call (``ops/cuda/conv_epilogue_kernel.fold_scale``), then bias
+    (+ shortcut) (+ relu) as one in-place pass (``conv_epilogue``), a
+    projection block's two biases summed into its closing epilogue. With
+    grad mode on (a training step), the affine, residual add and relu run as
+    separate operators, as autograd needs them;
   * explicit symmetric paddings; the max-pool pads with -inf.
 
 Parameters are a flat ``{caffe2_blob_name: tensor}`` dict with conv weights
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from detectorch_tpu_torch.ops.cuda.conv_epilogue_kernel import conv_epilogue, fold_scale
 from detectorch_tpu_torch.utils.profiling import span
 
 STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),
@@ -62,9 +69,28 @@ def affine(x, s, b):
     return x * s.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
 
 
-def conv_bn(params: Params, x, name: str, stride: int = 1, pad: int = 0):
-    x = conv(x, params[f"{name}_w"], stride, pad)
-    return affine(x, params[f"{name}_bn_s"], params[f"{name}_bn_b"])
+def fused() -> bool:
+    """Whether the frozen-BN convs run fused: with grad mode off, where
+    autograd records nothing. With it on (a training step) they run as
+    separate operators, the frozen stem and res2 included, so that a step's
+    ops, roundings and gradients are those of the unfused form."""
+    return not torch.is_grad_enabled()
+
+
+def folded(params: Params, name: str, dtype):
+    """Conv `name`'s weight times its frozen-BN scale, in fp32, rounded once
+    to `dtype`: conv(x, W)·s == conv(x, W·s)."""
+    return fold_scale(params[f"{name}_w"], params[f"{name}_bn_s"], dtype)
+
+
+def conv_bn(params: Params, x, name: str, stride: int = 1, pad: int = 0, relu: bool = False):
+    """conv + frozen BN (+ relu) of blob `name`: fused with grad mode off,
+    else conv, affine (and relu) as they are."""
+    w, s, b = params[f"{name}_w"], params[f"{name}_bn_s"], params[f"{name}_bn_b"]
+    if not fused():
+        x = affine(conv(x, w, stride, pad), s, b)
+        return F.relu(x) if relu else x
+    return conv_epilogue(conv(x, folded(params, name, x.dtype), stride, pad), b, relu=relu)
 
 
 def max_pool_3x3s2(x):
@@ -89,15 +115,41 @@ def bottleneck(params: Params, x, prefix: str, stride: int, has_proj: bool, grou
     """res{s}_{i}: branch2a(1x1)+bn+relu -> branch2b(3x3)+bn+relu ->
     branch2c(1x1)+bn, plus the branch1 projection; relu(sum). NCHW. The
     stride sits on branch2a for ResNet (groups 1), on the grouped branch2b
-    for ResNeXt."""
+    for ResNeXt. Fused (``fused()``), the projection runs with its folded
+    weight and no epilogue, its bias summed in fp32 into branch2c's, whose
+    epilogue adds the shortcut and takes the relu."""
+    if not fused():
+        return _bottleneck_unfused(params, x, prefix, stride, has_proj, groups)
+    dtype = x.dtype
+    bias = params[f"{prefix}_branch2c_bn_b"]
+    shortcut = x
+    if has_proj:
+        shortcut = conv(x, folded(params, f"{prefix}_branch1", dtype), stride)
+        bias = bias + params[f"{prefix}_branch1_bn_b"]
+    if groups == 1:
+        out = conv_bn(params, x, f"{prefix}_branch2a", stride=stride, relu=True)
+        out = conv_bn(params, out, f"{prefix}_branch2b", pad=1, relu=True)
+    else:
+        out = conv_bn(params, x, f"{prefix}_branch2a", relu=True)
+        w = folded(params, f"{prefix}_branch2b", dtype)
+        with span("grouped_conv"):
+            out = conv(out, w, stride, 1, groups)
+        out = conv_epilogue(out, params[f"{prefix}_branch2b_bn_b"], relu=True)
+    out = conv(out, folded(params, f"{prefix}_branch2c", dtype))
+    return conv_epilogue(out, bias, shortcut, relu=True)
+
+
+def _bottleneck_unfused(params: Params, x, prefix: str, stride: int, has_proj: bool,
+                        groups: int):
+    """The bottleneck as separate operators, for autograd."""
     shortcut = x
     if has_proj:
         shortcut = conv_bn(params, x, f"{prefix}_branch1", stride=stride)
     if groups == 1:
-        out = F.relu(conv_bn(params, x, f"{prefix}_branch2a", stride=stride))
-        out = F.relu(conv_bn(params, out, f"{prefix}_branch2b", stride=1, pad=1))
+        out = conv_bn(params, x, f"{prefix}_branch2a", stride=stride, relu=True)
+        out = conv_bn(params, out, f"{prefix}_branch2b", stride=1, pad=1, relu=True)
     else:
-        out = F.relu(conv_bn(params, x, f"{prefix}_branch2a"))
+        out = conv_bn(params, x, f"{prefix}_branch2a", relu=True)
         with span("grouped_conv"):
             out = conv(out, params[f"{prefix}_branch2b_w"], stride, 1, groups)
         out = F.relu(affine(out, params[f"{prefix}_branch2b_bn_s"],
@@ -117,9 +169,13 @@ def stage(params: Params, x, arch: str, stage_idx: int, stride: int):
 
 def stem(params: Params, x):
     """conv1 7x7/2 pad 3 + frozen BN + relu + maxpool 3x3/2 (NCHW)."""
-    x = conv(x, params["conv1_w"], stride=2, pad=3)
-    x = F.relu(affine(x, params["res_conv1_bn_s"], params["res_conv1_bn_b"]))
-    return max_pool_3x3s2(x)
+    w, s, b = params["conv1_w"], params["res_conv1_bn_s"], params["res_conv1_bn_b"]
+    if not fused():
+        return max_pool_3x3s2(F.relu(affine(conv(x, w, stride=2, pad=3), s, b)))
+    if x.stride(0) == 0:  # a broadcast batch of one: the conv would answer in NCHW
+        x = x.clone(memory_format=torch.channels_last)
+    x = conv(x, fold_scale(w, s, x.dtype), stride=2, pad=3)
+    return max_pool_3x3s2(conv_epilogue(x, b, relu=True))
 
 
 def c4_body(params: Params, x, arch: str = "resnet50"):

@@ -166,3 +166,28 @@ def test_the_nms_metrics_read_the_kernels(tmp_path, kernels):
         assert launches == 4.0 and ms == pytest.approx(0.01)
     else:
         assert launches is None and ms is None
+
+
+@pytest.mark.parametrize("kernels", [0, 6])
+def test_the_conv_epilogue_metrics_read_the_kernels(tmp_path, kernels):
+    # conv_epilogue_launches and conv_epilogue_ms count the kernels named
+    # detectorch_conv_epilogue inside the window, per request, and not the
+    # weight fold beside them; a trace without them reads nothing
+    events = [{"name": "bench_window", "ph": "X", "cat": "user_annotation", "ts": 0.0,
+               "dur": 1000.0},
+              {"name": "void (anonymous namespace)::detectorch_fold_scale_kernel<__nv_bfloat16>"
+                       "(float const*, float const*, __nv_bfloat16*, int, int)", "ph": "X",
+               "cat": "kernel", "ts": 5.0, "dur": 3.0}]
+    events += [{"name": "void (anonymous namespace)::detectorch_conv_epilogue_kernel<"
+                        f"__nv_bfloat16, {('true', 'false')[k % 2]}, true>(uint4*, uint4 const*, "
+                        "float const*, long long, int)", "ph": "X", "cat": "kernel",
+                "ts": 100.0 + 10 * k, "dur": 5.0} for k in range(kernels)]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    layer = {"trace": Trace(str(path), "bench_window"), "requests": 3}
+    launches = read_layer_metric("conv_epilogue_launches.infer", layer)
+    ms = read_layer_metric("conv_epilogue_ms.infer", layer)
+    if kernels:
+        assert launches == 2.0 and ms == pytest.approx(0.01)
+    else:
+        assert launches is None and ms is None

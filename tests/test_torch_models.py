@@ -93,6 +93,19 @@ def test_multilevel_body(params, rng):
         _close(got[k], exp[k])
 
 
+def test_multilevel_body_fused(params, rng):
+    """With grad mode off the trunk runs fused (each BN scale folded into its
+    conv's weight, bias, shortcut and relu in one epilogue): held to JAX as
+    the unfused trunk is."""
+    jp, tp = params
+    x = (rng.randn(2, 64, 96, 3) * 20).astype(np.float32)
+    with torch.inference_mode():
+        got = tresnet.multilevel_body(tp, torch.from_numpy(x))
+    exp = jresnet.multilevel_body(jp, jnp.asarray(x))
+    for k in ("c2", "c3", "c4", "c5"):
+        _close(got[k], exp[k])
+
+
 def test_stem_max_pool_pads_with_neg_inf(rng):
     # all-negative input: a zero-padded max pool would put 0 on the border
     x = -np.abs(rng.randn(1, 9, 11, 4)).astype(np.float32) - 1.0
@@ -113,6 +126,18 @@ def test_fpn_neck(params, rng):
         _close(g, e)
     _close(tfpn.subsample2x(got[-1]), jfpn.subsample2x(exp[-1]))
     _close(tfpn.upsample2x_nearest(got[-1]), jfpn.upsample2x_nearest(exp[-1]))
+
+
+def test_fpn_neck_fused(params, rng):
+    """With grad mode off each neck conv's bias is added by the epilogue."""
+    jp, tp = params
+    shapes = {"c2": (16, 24, 256), "c3": (8, 12, 512), "c4": (4, 6, 1024), "c5": (2, 3, 2048)}
+    feats = {k: rng.randn(2, *s).astype(np.float32) for k, s in shapes.items()}
+    with torch.inference_mode():
+        got = tfpn.fpn_neck(tp, {k: torch.from_numpy(v) for k, v in feats.items()})
+    exp = jfpn.fpn_neck(jp, {k: jnp.asarray(v) for k, v in feats.items()})
+    for g, e in zip(got, exp):
+        _close(g, e)
 
 
 def test_rpn_head(params, rng):
